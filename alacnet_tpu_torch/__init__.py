@@ -1,16 +1,21 @@
-"""alacnet_tpu_torch — the batched ALAC decode path in PyTorch and CUDA.
+"""alacnet_tpu_torch — batched ALAC decode and encode in PyTorch and CUDA.
 
-A port of ``alacnet_tpu``'s main path (``decode_files`` ->
+A port of ``alacnet_tpu``'s decode path (``decode_files`` ->
 ``decode_streams`` -> ``decode_blob`` -> ``dispatch_frame_batch`` ->
-``decode_frames_packed``) to PyTorch, with hand-written CUDA kernels for
-Hopper (sm_90a) in place of the JAX package's Pallas kernels
-(``pack_rows``, ``rice_lpc``, ``bulk_bits``).  It imports torch and
-NumPy, never JAX; its output is bit-identical to the JAX package's.
-Decoding runs on ``DecodeConfig.device`` (default ``"cuda"``); pass
-``device="cpu"`` to run the kernels' plain torch versions on the CPU.
+``decode_frames_packed``) and its device encode path (``encode_files``
+-> ``encode_frames_device`` -> ``encode_stages_pcm``) to PyTorch, with
+hand-written CUDA kernels for Hopper (sm_90a) in place of the JAX
+package's Pallas kernels (``pack_rows``, ``rice_lpc``, ``bulk_bits``;
+``enc_pred``, ``enc_rice``).  It imports torch and NumPy, never JAX;
+its output is bit-identical to the JAX package's.  Decoding runs on
+``DecodeConfig.device`` and batch encoding on ``encode_files(device=)``
+(both default ``"cuda"``); pass ``device="cpu"`` to run the kernels'
+plain torch versions on the CPU.
 """
 
 from .batch import DecodedAudio, decode_file, decode_files, decode_streams
+from .codec.encoder import AlacEncoder, EncoderConfig, encode_files, encode_m4a
+from .codec.encoder_device import encode_frames_device
 from .config import DecodeConfig
 from .errors import (
     AlacError,
@@ -24,10 +29,12 @@ from .errors import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "AlacEncoder",
     "AlacError",
     "BitstreamError",
     "DecodeConfig",
     "DecodedAudio",
+    "EncoderConfig",
     "HeaderError",
     "MdatPosStatus",
     "SampleReadError",
@@ -35,5 +42,8 @@ __all__ = [
     "decode_file",
     "decode_files",
     "decode_streams",
+    "encode_files",
+    "encode_frames_device",
+    "encode_m4a",
     "__version__",
 ]

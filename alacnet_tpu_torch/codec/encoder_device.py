@@ -1,0 +1,537 @@
+"""Batch ALAC encoding with the sequential stages on a torch device.
+
+The counterpart of ``alacnet_tpu/codec/encoder_tpu.py``.  Encoding
+splits the way decoding does:
+
+  host   — batch prep: batched Levinson coefficients over a window-
+           sized decorrelation (codec/encoder.levinson_coefs_batch), the
+           extra-bits side-channel plane, the header and coefficient bit
+           fields;
+  device — extra-bits strip, stereo decorrelation and channel fold
+           (elementwise torch, ops/encode.encode_stages_pcm), then the
+           two per-sample automatons, frame-per-lane with stereo
+           channels folded into extra lanes (the ``enc_pred`` and
+           ``enc_rice`` CUDA kernels on a card, their plain torch
+           versions on the CPU), and the pair merge
+           (ops/encode.merge_pair_chunks);
+  host   — whole-batch packing (the native two-frame pair packer; the
+           classic chunk packer or a Python BitWriter otherwise).
+
+Large batches run as a bounded pipeline: the host preps and dispatches
+chunk k+1 while the device runs chunk k and a worker thread packs chunk
+k-1, with at most two chunks queued for the worker.  On a card the PCM
+goes up through pinned memory with ``non_blocking=True``, and the
+planes come back into pinned buffers behind a CUDA event per chunk; the
+worker waits on that event before it reads them.
+
+Output payloads are byte-identical to ``codec/encoder.AlacEncoder`` given
+the same configuration, and to the JAX package's ``encode_frames_tpu``
+(tests/test_torch_encoder.py).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from .. import native
+from ..ops.lpc import MAX_ORDER, LpcParams, reverse_coefs
+from ..utils.transfer import d2h_async, h2d
+from .cookie import CodecParams
+from .encoder import AlacEncoder, EncoderConfig, levinson_coefs_batch
+
+#: Frames per device batch in the pipelined path (2*chunk lanes on the
+#: device; 4096-sample frames at 2048 lanes stage ~300 MB of planes).
+CHUNK_FRAMES = 1024
+
+
+def check_device(device) -> torch.device:
+    """``device`` as a torch device; a CUDA device without a usable card
+    raises instead of moving to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"encoding on device={str(device)!r} needs a CUDA device, and "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "the plain torch versions, or device=None for the host encoder"
+        )
+    return dev
+
+
+def _header_bits(enc: AlacEncoder, n: int, nch: int, ub: int,
+                 coefs_per_ch: list[list[int]]) -> tuple[list[int], list[int]]:
+    """All bit fields preceding the extra-bits/entropy sections."""
+    vals, widths = enc._header_fields(n, nch, ub, 0)
+    if nch == 2:
+        vals += [enc.config.interlacing_shift, enc.config.interlacing_leftweight]
+        widths += [8, 8]
+    else:
+        vals += [0]  # mono filler bits (AlacFile.cs:457-459)
+        widths += [16]
+    for coefs in coefs_per_ch:
+        pv, pw = enc._prediction_fields(coefs, enc.config.order)
+        vals += pv
+        widths += pw
+    return vals, widths
+
+
+def _normalize_frames(frames, S: int):
+    """-> (padded (F, S, 2) int, ns_f (F,), stereo_f (F,) bool).
+
+    ``frames`` may be a single (F, S, ch) array (a reshaped view of
+    contiguous PCM) or a list of per-frame (n, ch) arrays with mixed
+    lengths/channel counts.
+    """
+    if isinstance(frames, np.ndarray):
+        if frames.ndim != 3:
+            raise ValueError("array input must be (F, S, channels)")
+        F, n, nch = frames.shape
+        if n > S:
+            raise ValueError(f"frames of {n} samples exceed {S}")
+        if nch not in (1, 2):
+            raise ValueError(f"1 or 2 channels, got {nch}")
+        ns_f = np.full(F, n, np.int32)
+        stereo_f = np.full(F, nch == 2)
+        if n == S and nch == 2:
+            return frames, ns_f, stereo_f
+        padded = np.zeros((F, S, 2), frames.dtype)
+        padded[:, :n, :nch] = frames
+        return padded, ns_f, stereo_f
+    F = len(frames)
+    ns_f = np.zeros(F, np.int32)
+    stereo_f = np.zeros(F, bool)
+    shapes = {np.asarray(f).shape for f in frames}
+    if len(shapes) == 1:
+        a = np.asarray(frames)
+        if a.ndim == 2:
+            a = a[:, :, None]
+        return _normalize_frames(a, S)
+    padded = np.zeros((F, S, 2), np.int64)
+    for f, pcm in enumerate(frames):
+        pcm = np.asarray(pcm)
+        if pcm.ndim == 1:
+            pcm = pcm[:, None]
+        n, nch = pcm.shape
+        if nch not in (1, 2):
+            raise ValueError(f"1 or 2 channels, got {nch}")
+        if n > S:
+            raise ValueError(f"frame of {n} samples exceeds {S}")
+        ns_f[f] = n
+        stereo_f[f] = nch == 2
+        padded[f, :n, :nch] = pcm
+    return padded, ns_f, stereo_f
+
+
+def _prep(frames, params: CodecParams, cfg: EncoderConfig, enc: AlacEncoder):
+    """Host prep: windowed decorrelation, batched Levinson, header
+    fields, the extra-bits plane.
+
+    Returns a dict with everything the dispatch and pack stages need.
+    """
+    S = params.max_samples_per_frame
+    ub = cfg.uncompressed_bytes
+    order = cfg.order
+    padded, ns_f, stereo_f = _normalize_frames(frames, S)
+    F = len(ns_f)
+    B = 2 * F  # channel-folded lanes: [A of all frames, B of all frames]
+
+    # The full-frame extra-bits strip / stereo decorrelation / channel
+    # fold run on the device (ops/encode.encode_stages_pcm).  The host
+    # keeps only (a) the extra-bits side-channel plane (packed on the
+    # host) and (b) a Levinson-window-sized decorrelation for the
+    # coefficient choice.
+    ub8 = 8 * ub
+    pcm_i32 = np.ascontiguousarray(padded, np.int32)  # <=24-bit always fits
+    extra_pl = (pcm_i32 & ((1 << ub8) - 1)).astype(np.uint32) if ub else None
+    sh, lw = cfg.interlacing_shift, cfg.interlacing_leftweight
+    # Product domain: |cb| * leftweight can pass 2^31 only when the
+    # post-strip width exceeds 16 bits (24-bit no-extra-bits content).
+    wide = params.sample_size - ub8 > 16
+    ns = np.concatenate([ns_f, np.where(stereo_f, ns_f, 0)]).astype(np.int32)
+    rss_l = np.concatenate(
+        [params.sample_size - 8 * ub + stereo_f.astype(np.int32)] * 2
+    ).astype(np.int32)
+
+    # ---- batched coefficient choice (identical to _choose_coefs by
+    # construction: both go through levinson_coefs_batch) ----
+    if order in (0, 0x1F) or not cfg.adaptive_coefs:
+        seed = enc._seed_coefs(order)
+        ncoef = len(seed)
+        coef_mat = np.tile(np.asarray(seed, np.int32), (B, 1))
+    else:
+        ncoef = order
+        w = min(cfg.levinson_window or S, S)
+        # Levinson reads just the first w samples of each lane, and the
+        # decorrelation is per sample, so the windowed fold equals the
+        # full fold's prefix.
+        sig_w = native.decorr_window_native(
+            pcm_i32, w, ub8, lw, sh, stereo_f, wide
+        )
+        if sig_w is None:
+            work_dtype = np.int64 if wide else np.int32
+            hiw = pcm_i32[:, :w].astype(work_dtype)
+            if ub8:
+                hiw >>= ub8
+            if lw != 0:
+                cbw = hiw[:, :, 0] - hiw[:, :, 1]
+                caw = hiw[:, :, 1] + ((cbw * lw) >> sh)
+            else:
+                caw, cbw = hiw[:, :, 0], hiw[:, :, 1]
+            stw = stereo_f[:, None]
+            sig_w = np.empty((B, w), np.int32)
+            np.copyto(sig_w[:F], np.where(stw, caw, hiw[:, :, 0]))
+            np.copyto(sig_w[F:], np.where(stw, cbw, 0))
+        coef_mat = levinson_coefs_batch(
+            sig_w, np.minimum(ns, w), order, cfg.quant
+        )
+    coef_mat = np.where(ns[:, None] > 0, coef_mat, 0)
+
+    # ---- header/coef bit fields ----
+    uniform = (
+        ns_f.size > 0
+        and (ns_f == ns_f[0]).all()
+        and (stereo_f == stereo_f[0]).all()
+    )
+    # Emitted coef-field count per channel (order 31 emits all 31; order
+    # 0 emits none — _prediction_fields, AlacFile.cs:577-596 mirrored).
+    emitted = 31 if order == 0x1F else order
+    if uniform:
+        nch = 2 if stereo_f[0] else 1
+        coefs0 = [[0] * ncoef] * nch
+        tv, tw = _header_bits(enc, int(ns_f[0]), nch, ub, coefs0)
+        H = len(tv)
+        hw_row = np.asarray(tw, np.uint8)
+        hv_mat = np.tile(np.asarray(tv, np.uint32), (F, 1))
+        # coef fields sit at the tail of each channel's prediction block
+        if emitted:
+            a_end = H - (4 + emitted) * (nch - 1)
+            hv_mat[:, a_end - emitted : a_end] = (
+                coef_mat[:F, :emitted] & 0xFFFF
+            )
+            if nch == 2:
+                hv_mat[:, H - emitted : H] = coef_mat[F:, :emitted] & 0xFFFF
+        hv_all = hv_mat.reshape(-1)
+        hw_all = np.tile(hw_row, F)
+        h_off = np.arange(F + 1, dtype=np.int64) * H
+        hbits = np.full(F, int(hw_row.astype(np.int64).sum()), np.int64)
+    else:
+        hv_parts, hw_parts = [], []
+        h_off = np.zeros(F + 1, np.int64)
+        hbits = np.zeros(F, np.int64)
+        for f in range(F):
+            nch = 2 if stereo_f[f] else 1
+            coefs_per_ch = [coef_mat[f, :ncoef].tolist()]
+            if nch == 2:
+                coefs_per_ch.append(coef_mat[F + f, :ncoef].tolist())
+            hv, hw = _header_bits(enc, int(ns_f[f]), nch, ub, coefs_per_ch)
+            hv_parts.append(np.asarray(hv, np.uint32))
+            hw_parts.append(np.asarray(hw, np.uint8))
+            h_off[f + 1] = h_off[f] + len(hv)
+            hbits[f] = sum(hw)
+        hv_all = np.concatenate(hv_parts) if F else np.zeros(0, np.uint32)
+        hw_all = np.concatenate(hw_parts) if F else np.zeros(0, np.uint8)
+
+    # ---- extra-bits side-channel plane (A:B interleaved per sample) ----
+    if ub:
+        ea = extra_pl[:, :, 0]
+        eb = extra_pl[:, :, 1]
+        extra_plane = np.where(stereo_f[:, None], (ea << ub8) | eb, ea)
+        extra_w = np.where(stereo_f, 2 * ub8, ub8).astype(np.uint8)
+        extra_bits = extra_w.astype(np.int64) * ns_f
+    else:
+        extra_plane = None
+        extra_w = None
+        extra_bits = 0
+
+    return {
+        "F": F, "S": S, "B": B, "order": order, "ncoef": ncoef,
+        "pcm": pcm_i32, "lw": lw, "sh": sh, "ub8": ub8, "wide": wide,
+        "ns": ns, "ns_f": ns_f, "stereo_f": stereo_f,
+        "rss_l": rss_l, "coef_mat": coef_mat,
+        "hv": hv_all, "hw": hw_all, "h_off": h_off,
+        "hbits": hbits + extra_bits,
+        "extra_plane": extra_plane, "extra_w": extra_w,
+    }
+
+
+def _dispatch(prep, params: CodecParams, cfg: EncoderConfig, device: torch.device,
+              kernel: str = "auto", pairs: bool | None = None):
+    """Upload the prepped batch, queue the device stages and the D2H of
+    their planes, and return a callable that waits for the planes and
+    gives them as NumPy arrays.
+
+    ``pairs`` (default: on when the native tier is available, which the
+    pair packer needs) selects the pair-merged planes; a batch with a
+    non-fitting pair re-dispatches the classic per-sample planes through
+    ``prep["_classic_dispatch"]`` (see :func:`_pack_host_pairs`).
+    """
+    from ..ops.encode import RiceEncParams, encode_stages_pcm
+
+    if pairs is None:
+        pairs = native.available()
+    prep["pairs"] = pairs
+    if pairs:
+        prep["_classic_dispatch"] = lambda: _dispatch(
+            prep, params, cfg, device, kernel, pairs=False
+        )
+
+    B, S, order = prep["B"], prep["S"], prep["order"]
+    coef_tab = np.zeros((B, MAX_ORDER), np.int32)
+    coef_tab[:, : prep["ncoef"]] = prep["coef_mat"][:, :MAX_ORDER]
+    rc = reverse_coefs(coef_tab, np.full(B, order, np.int32))
+
+    def lanes(value) -> np.ndarray:
+        return np.full(B, value, np.int32)
+
+    # One upload for every per-lane parameter and the lane counts.
+    cols = np.stack([
+        lanes(order), lanes(cfg.quant), prep["rss_l"],
+        lanes(params.rice_kmodifier), lanes(params.rice_initial_history),
+        lanes(params.rice_history_mult_for(cfg.rice_modifier)),
+        lanes(params.rice_kmodifier_mask), prep["ns"],
+    ]).astype(np.int32)
+    cols_d = h2d(cols, device)
+    order_d, quant_d, rss_d, kmod_d, ihist_d, mult_d, kmask_d, ns_d = cols_d
+    lp = LpcParams(order=order_d, quant=quant_d, rc=h2d(rc, device), rss=rss_d)
+    rp = RiceEncParams(
+        rss=rss_d, kmod=kmod_d, init_history=ihist_d, mult=mult_d, kmask=kmask_d
+    )
+    max_order = 0 if order in (0, 31) else order
+    planes = encode_stages_pcm(
+        h2d(prep["pcm"], device),
+        h2d(prep["stereo_f"].astype(np.uint8), device).to(torch.bool),
+        ns_d, lp, rp, S, max_order=max_order, lw=prep["lw"], sh=prep["sh"],
+        ub8=prep["ub8"], wide=prep["wide"], kernel=kernel, pairs=pairs,
+    )
+    return d2h_async(*planes)
+
+
+def _pack(prep, fetch, timings: dict | None):
+    """Assemble payload bytes from a dispatch's planes."""
+    if prep.get("pairs"):
+        return _pack_host_pairs(prep, fetch, timings)
+    return _pack_host(prep, fetch, timings)
+
+
+def _fetch_lane_major(fetch):
+    """Wait for a dispatch's planes and return them as host arrays in the
+    packers' flat (2F, ...) lane layout: int32 bit patterns as uint32,
+    every plane contiguous."""
+    out = []
+    for a in fetch():
+        a = np.ascontiguousarray(a)
+        out.append(a.view(np.uint32) if a.dtype == np.int32 else a)
+    return out
+
+
+def _add_timings(timings, t0, t1, nbytes):
+    if timings is not None:
+        timings["emit_wait_s"] = timings.get("emit_wait_s", 0.0) + t1 - t0
+        timings["plane_bytes"] = timings.get("plane_bytes", 0) + nbytes
+        timings["pack_s"] = timings.get("pack_s", 0.0) + time.perf_counter() - t1
+
+
+def _pack_host_pairs(prep, fetch, timings: dict | None):
+    """Read back the pair planes (merge_pair_chunks layout) and assemble
+    payload bytes with the native two-frame pair packer.
+
+    A set ``fat`` flag (some pair's combined width exceeds 96 bits —
+    unreachable for real content, but the packer's 3-word field cannot
+    represent it) re-dispatches the batch on the classic per-sample
+    chunk planes and packs those instead: correctness never depends on
+    the pair layout fitting.
+    """
+    t0 = time.perf_counter()
+    ph, pm, pl, pws, bits, bad, fat = _fetch_lane_major(fetch)
+    if bool(fat.any()):
+        prep["pairs"] = False
+        return _pack_host(prep, prep["_classic_dispatch"](), timings)
+    if bool(bad.any()):
+        raise RuntimeError("encoder state desync: raw < 0")
+    t1 = time.perf_counter()
+    F = prep["F"]
+    bits = bits.view(np.int32).astype(np.int64)
+    total_bits = prep["hbits"] + bits[:F] + bits[F:]
+    out_stride = int(total_bits.max()) // 8 + 8 if F else 8
+    packed = native.pack_pair_frames_native(
+        prep["hv"], prep["hw"], prep["h_off"],
+        prep["extra_plane"], prep["extra_w"],
+        ph, pm, pl, pws, prep["ns_f"], prep["stereo_f"].astype(np.uint8),
+        prep["S"], out_stride,
+        # Recycled rows: the payload slices below copy out of them
+        # before this function returns.
+        reuse=True,
+    )
+    if packed is None:
+        raise RuntimeError("the native pair packer is unavailable")
+    out, end_bits = packed
+    payloads = [out[f, : -(-int(end_bits[f]) // 8)].tobytes() for f in range(F)]
+    _add_timings(timings, t0, t1, ph.nbytes + pm.nbytes + pl.nbytes + pws.nbytes)
+    return payloads
+
+
+def _pack_host(prep, fetch, timings: dict | None):
+    """Read back the classic chunk planes and assemble payload bytes."""
+    t0 = time.perf_counter()
+    c0, c1, c2, ws, bits, bad = _fetch_lane_major(fetch)
+    if bool(bad.any()):
+        raise RuntimeError("encoder state desync: raw < 0")
+    t1 = time.perf_counter()
+    F = prep["F"]
+    bits = bits.view(np.int32).astype(np.int64)
+    total_bits = prep["hbits"] + bits[:F] + bits[F:]
+    out_stride = int(total_bits.max()) // 8 + 8 if F else 8
+    packed = native.pack_chunk_frames_native(
+        prep["hv"], prep["hw"], prep["h_off"],
+        prep["extra_plane"], prep["extra_w"],
+        c0, c1, c2, ws, prep["ns_f"], prep["stereo_f"].astype(np.uint8),
+        out_stride,
+        reuse=True,  # the payload slices below copy out before return
+    )
+    if packed is not None:
+        out, end_bits = packed
+        payloads = [
+            out[f, : -(-int(end_bits[f]) // 8)].tobytes() for f in range(F)
+        ]
+    else:
+        payloads = _pack_py(prep, c0, c1, c2, ws)
+    _add_timings(timings, t0, t1, c0.nbytes + c1.nbytes + c2.nbytes + ws.nbytes)
+    return payloads
+
+
+def _pack_py(prep, c0, c1, c2, ws):
+    """Pure-Python packing (no native library)."""
+    from .bitwriter import BitWriter
+
+    F = prep["F"]
+    hv, hw, h_off = prep["hv"], prep["hw"], prep["h_off"]
+    extra_plane, extra_w = prep["extra_plane"], prep["extra_w"]
+    payloads = []
+    for f in range(F):
+        w = BitWriter()
+        for v, wd in zip(
+            hv[h_off[f] : h_off[f + 1]].tolist(),
+            hw[h_off[f] : h_off[f + 1]].tolist(),
+        ):
+            w.write(int(v), int(wd))
+        n = int(prep["ns_f"][f])
+        if extra_plane is not None and extra_w[f]:
+            eb = int(extra_w[f])
+            for i in range(n):
+                w.write(int(extra_plane[f, i]), eb)
+        lanes = [f, F + f] if prep["stereo_f"][f] else [f]
+        for lane in lanes:
+            for i in range(n):
+                b = int(ws[lane, i])
+                if b <= 32:
+                    w.write(int(c2[lane, i]), b)
+                elif b <= 64:
+                    w.write(int(c1[lane, i]), b - 32)
+                    w.write(int(c2[lane, i]), 32)
+                else:
+                    w.write(int(c0[lane, i]), b - 64)
+                    w.write(int(c1[lane, i]), 32)
+                    w.write(int(c2[lane, i]), 32)
+        payloads.append(w.getvalue())
+    return payloads
+
+
+def encode_frames_device(
+    frames,
+    params: CodecParams,
+    config: EncoderConfig | None = None,
+    timings: dict | None = None,
+    chunk_frames: int | None = None,
+    device="cuda",
+    kernel: str = "auto",
+) -> list[bytes]:
+    """Encode PCM frames in device batches.
+
+    ``frames``: list of (n, ch) int arrays (mixed lengths/channels), or
+    a single (F, S, ch) array (uniform full frames, e.g. a reshaped view
+    of contiguous PCM).  Compressed path only (``force_uncompressed``
+    frames have no sequential stage: use AlacEncoder).
+
+    ``device``: torch device of the automatons (``"cuda"`` raises without
+    a card; ``"cpu"`` runs their plain torch versions).  ``kernel``:
+    "auto" | "cuda" | "torch" (ops/cuda/_lib.py).  Batches larger than
+    ``chunk_frames`` (default CHUNK_FRAMES) run as the bounded pipeline
+    of the module docstring.
+
+    ``timings``: optional dict receiving per-stage wall times summed over
+    chunks — ``prep_s`` (host prep and the device dispatch, which does
+    not wait for the device), ``emit_wait_s`` (waiting for the planes),
+    ``plane_bytes`` (their size), ``pack_s``.
+    """
+    cfg = config or EncoderConfig()
+    if cfg.force_uncompressed:
+        raise ValueError("device encoder handles the compressed path only")
+    if cfg.uncompressed_bytes > 2:
+        # The combined per-sample extra-bits field (A:B interleaved) must
+        # fit one u32 plane value; the host AlacEncoder covers ub=3.
+        raise ValueError("device encoder supports uncompressed_bytes <= 2")
+    dev = check_device(device)
+    enc = AlacEncoder(params, cfg)  # validates params/config like the host
+    F = len(frames)
+    if F == 0:
+        return []
+    step = chunk_frames or CHUNK_FRAMES
+    payloads: list[bytes] = []
+
+    # Pack runs on a worker thread: the native packer (ctypes) and the
+    # waits on the device release the GIL, so packing chunk k-1 overlaps
+    # the prep of chunk k+1 while the device runs chunk k.  The 2-deep
+    # queue bounds the chunks in flight; one worker and a FIFO queue keep
+    # the payloads in order.
+    q: queue.Queue = queue.Queue(maxsize=2)
+    failure: list[BaseException] = []
+
+    def pack_worker():
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            try:
+                payloads.extend(_pack(item[0], item[1], timings))
+            except BaseException as e:  # re-raised by the dispatch loop
+                failure.append(e)
+                return
+
+    def enqueue(item):
+        while True:
+            if failure:
+                raise failure[0]
+            try:
+                q.put(item, timeout=0.2)
+                return
+            except queue.Full:
+                continue
+
+    worker = threading.Thread(target=pack_worker, daemon=True)
+    worker.start()
+    try:
+        for lo in range(0, F, step):
+            t0 = time.perf_counter()
+            prep = _prep(frames[lo : lo + step], params, cfg, enc)
+            fetch = _dispatch(prep, params, cfg, dev, kernel)  # async
+            if timings is not None:
+                timings["prep_s"] = (
+                    timings.get("prep_s", 0.0) + time.perf_counter() - t0
+                )
+            enqueue((prep, fetch))
+    finally:
+        # Stop the worker on every exit (a failed worker has returned).
+        while worker.is_alive():
+            try:
+                q.put(None, timeout=0.2)
+                break
+            except queue.Full:
+                continue
+        worker.join()
+    if failure:
+        raise failure[0]
+    return payloads

@@ -1,0 +1,199 @@
+// Rice / adaptive-Golomb emitter of the ALAC encoder, with the four bit
+// fields of each sample merged into one right-aligned 96-bit chunk, one
+// channel per lane, for Hopper (sm_90a).
+//
+// Replaces: alacnet_tpu/ops/pallas/enc_stages.py, `_rice_kernel` (reached
+// via `rice_merge_fused` / `encode_stages_fused` -> `_rice_blocks`).  The
+// per-sample expressions mirror that kernel's `sample` body (the
+// decoder's EntropyRiceDecode state machine run forward,
+// AlacFile.cs:214-252) and its `_merge4`; the plain torch version is
+// ops/encode.rice_symbols -> merge_symbol_chunks -> ws.sum(1)
+// (alacnet_tpu_torch/ops/cuda/enc_stages.py).
+//
+// What bounds it on the H100: the history, sign-modifier and skip state
+// make each lane a serial recurrence, and a chunk is 2048 lanes, so the
+// kernel is bound by one thread's per-sample instruction chain (two
+// symbol emissions and the 96-bit merge), not by bytes (8 bytes in, 13
+// out per sample) or the card's operation rate.
+//
+// What the design does about it: one thread per lane with all state in
+// registers, and small blocks (kThreads lanes) so that a chunk spreads
+// over 64 SMs.  Planes are sample-major (S, B): the 32 lanes of a warp
+// read and write contiguous words per sample.  Each symbol takes the
+// nine-step quotient ladder of ops/encode._emit_sym, so the kernel is
+// the plain version's arithmetic step for step.  The TPU kernel's lane
+// tiles, 1024-lane padding and staging tiles do not carry over: the
+// kernel takes any B and S.
+//
+// Bit-exactness: every wrapping product and sum runs in uint32_t
+// (2*err, h*mult, dv*mult); shifts follow jax.lax (left by 32 or more
+// gives 0, arithmetic right by 32 or more gives the sign fill); the
+// merge's logical shifts give 0 for counts of 32 or more; clz(0) is 40.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 32;  // lanes per block: 2048 lanes -> 64 blocks
+constexpr int kRiceThreshold = 8;
+
+__device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+__device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a - (uint32_t)b);
+}
+__device__ __forceinline__ int32_t wmul(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a * (uint32_t)b);
+}
+__device__ __forceinline__ int32_t clz40(int32_t x) {
+  return x == 0 ? 40 : __clz(x);
+}
+// jax.lax.shift_left on int32: counts outside [0, 31] give 0.
+__device__ __forceinline__ int32_t shl(int32_t x, int32_t c) {
+  return (uint32_t)c > 31u ? 0 : (int32_t)((uint32_t)x << c);
+}
+// The merge's u32 shifts: c >= 32 gives 0, else the count's low 5 bits.
+__device__ __forceinline__ uint32_t shl_u(uint32_t x, int32_t c) {
+  return c >= 32 ? 0u : x << (c & 31);
+}
+__device__ __forceinline__ uint32_t shr_u(uint32_t x, int32_t c) {
+  return c >= 32 ? 0u : x >> (c & 31);
+}
+
+struct Sym {
+  int32_t v0, w0, v1, w1;
+};
+
+// One entropy symbol (ops/encode._emit_sym; AlacFile.cs:193-212 run
+// forward): the unary/escape field and the remainder/raw field.
+__device__ __forceinline__ Sym emit_sym(int32_t raw, int32_t rss, int32_t k,
+                                        int32_t mask) {
+  const int32_t k_safe = k < 1 ? 1 : (k > 31 ? 31 : k);
+  const int32_t m = (int32_t)(((1u << k_safe) - 1u) & (uint32_t)mask);
+  int32_t rem = raw, q = 0;
+#pragma unroll
+  for (int s = 0; s <= kRiceThreshold; ++s) {
+    const bool c = m > 0 && rem >= m;
+    rem = c ? wsub(rem, m) : rem;
+    q += c;
+  }
+  const bool esc_q = m <= 0 || q > kRiceThreshold;
+  const bool is_k1 = k == 1;
+  const bool esc = is_k1 ? raw > kRiceThreshold : esc_q;
+  const int32_t uq = is_k1 ? (raw < kRiceThreshold ? raw : kRiceThreshold) : q;
+  Sym s;
+  s.v0 = esc ? 0x1FF : wsub(shl(1, wadd(uq, 1)), 2);
+  s.w0 = esc ? 9 : wadd(uq, 1);
+  s.v1 = esc ? raw : (is_k1 ? 0 : (rem == 0 ? 0 : wadd(rem, 1)));
+  s.w1 = esc ? rss : (is_k1 ? 0 : (rem == 0 ? k_safe - 1 : k_safe));
+  return s;
+}
+
+// Append field (val, w) to the right-aligned 96-bit chunk h:m:l
+// (`_merge4`, ops/encode.merge_symbol_chunks).
+__device__ __forceinline__ void append(uint32_t& h, uint32_t& m, uint32_t& l,
+                                       int32_t val, int32_t w) {
+  const uint32_t v = (uint32_t)val & (shl_u(1u, w) - 1u);
+  const int32_t inv = 32 - w;
+  h = shl_u(h, w) | shr_u(m, inv);
+  m = shl_u(m, w) | shr_u(l, inv);
+  l = shl_u(l, w) | v;
+}
+
+__global__ void __launch_bounds__(kThreads) enc_rice_kernel(
+    const int32_t* __restrict__ errs_sb, const int32_t* __restrict__ zr_sb,
+    int B, int S, const int32_t* __restrict__ n_arr,
+    const int32_t* __restrict__ rss_arr, const int32_t* __restrict__ kmod_arr,
+    const int32_t* __restrict__ ihist_arr,
+    const int32_t* __restrict__ mult_arr,
+    const int32_t* __restrict__ kmask_arr, int32_t* __restrict__ c0_sb,
+    int32_t* __restrict__ c1_sb, int32_t* __restrict__ c2_sb,
+    int8_t* __restrict__ ws_sb, int32_t* __restrict__ bits_out,
+    bool* __restrict__ bad_out) {
+  const int b = blockIdx.x * kThreads + threadIdx.x;
+  if (b >= B) return;
+
+  const int32_t n = n_arr[b];
+  const int32_t rss = rss_arr[b];
+  const int32_t kmod = kmod_arr[b];
+  const int32_t mult = mult_arr[b];
+  const int32_t kmask = kmask_arr[b];
+
+  int32_t h = ihist_arr[b];
+  int32_t sgnmod = 0, skip = 0, bits = 0;
+  bool bad = false;
+
+  for (int i = 0; i < S; ++i) {
+    const size_t at = (size_t)i * B + b;
+    const int32_t err = errs_sb[at];
+    const int32_t zr = zr_sb[at];
+    const bool in_skip = skip > 0;
+    const bool active = i < n && !in_skip;
+
+    const int32_t dv = err > 0 ? wmul(2, err)
+                               : (err < 0 ? wsub(wmul(-2, err), 1) : 0);
+    const int32_t raw = wsub(dv, sgnmod);
+    bad = bad || (active && raw < 0);
+    const int32_t ik = 31 - kmod - clz40(wadd(h >> 9, 3));
+    const int32_t k = ik < 0 ? ik + kmod : kmod;
+    const Sym sv = emit_sym(raw, rss, k, -1);
+
+    const int32_t h2 =
+        dv > 0xFFFF ? 0xFFFF : wsub(wadd(h, wmul(dv, mult)), wmul(h, mult) >> 9);
+    const bool zcond = h2 < 128 && i + 1 < n;
+    int32_t kz = clz40(h2) + (wadd(h2, 16) >> 6) - 24;
+    kz = kz < 31 ? kz : 31;
+    const Sym sz = emit_sym(zr, 16, kz, kmask);
+
+    // Widths pass through int8, as the plain version's width planes do
+    // (a no-op for every width a lane without a desync can have).
+    const bool emit_z = active && zcond;
+    const int32_t w0 = (int8_t)(active ? sv.w0 : 0);
+    const int32_t w1 = (int8_t)(active ? sv.w1 : 0);
+    const int32_t w2 = (int8_t)(emit_z ? sz.w0 : 0);
+    const int32_t w3 = (int8_t)(emit_z ? sz.w1 : 0);
+    uint32_t ch = 0u, cm = 0u, cl = 0u;
+    append(ch, cm, cl, sv.v0, w0);
+    append(ch, cm, cl, sv.v1, w1);
+    append(ch, cm, cl, sz.v0, w2);
+    append(ch, cm, cl, sz.v1, w3);
+    const int8_t ws = (int8_t)(w0 + w1 + w2 + w3);
+    c0_sb[at] = (int32_t)ch;
+    c1_sb[at] = (int32_t)cm;
+    c2_sb[at] = (int32_t)cl;
+    ws_sb[at] = ws;
+    bits = wadd(bits, ws);
+
+    if (active) {
+      h = zcond ? 0 : h2;
+      sgnmod = zcond ? 1 : 0;
+      skip = zcond ? zr : 0;
+    } else if (in_skip && i < n) {
+      skip -= 1;
+    }
+  }
+  bits_out[b] = bits;
+  bad_out[b] = bad;
+}
+
+}  // namespace
+
+extern "C" int alac_enc_rice(const void* errs_sb, const void* zr_sb, int B,
+                             int S, const void* n, const void* rss,
+                             const void* kmod, const void* ihist,
+                             const void* mult, const void* kmask, void* c0_sb,
+                             void* c1_sb, void* c2_sb, void* ws_sb, void* bits,
+                             void* bad, void* stream) {
+  if (B > 0) {
+    enc_rice_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
+                      (cudaStream_t)stream>>>(
+        (const int32_t*)errs_sb, (const int32_t*)zr_sb, B, S,
+        (const int32_t*)n, (const int32_t*)rss, (const int32_t*)kmod,
+        (const int32_t*)ihist, (const int32_t*)mult, (const int32_t*)kmask,
+        (int32_t*)c0_sb, (int32_t*)c1_sb, (int32_t*)c2_sb, (int8_t*)ws_sb,
+        (int32_t*)bits, (bool*)bad);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,11 +1,13 @@
 """Build, load and route the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` files compile in ONE ``nvcc`` call into one shared
-library with a plain C interface under ``alacnet_tpu_torch/_build/``,
-named by a hash of the sources and flags, at first use (so a fresh
-checkout builds it on its first launch).  It is loaded with ctypes: no
-PyTorch headers, so the build takes seconds.  Each C entry launches on
-the stream it is given and returns ``cudaGetLastError()``.
+Each ``csrc/*.cu`` file compiles to an object in its own ``nvcc``
+process, all started together, and one more ``nvcc`` call links them
+into one shared library with a plain C interface under
+``alacnet_tpu_torch/_build/``, named by a hash of the sources and flags,
+at first use (so a fresh checkout builds it on its first launch).  It is
+loaded with ctypes: no PyTorch headers, so the build takes seconds.
+Each C entry launches on the stream it is given and returns
+``cudaGetLastError()``.
 
 Routing (``kernel`` argument of every wrapper, ``DecodeConfig.kernel``):
 ``"auto"`` launches the kernel for a CUDA tensor and runs the plain
@@ -35,7 +37,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 #: Largest grid y dimension: the per-element kernels put lanes on x and
@@ -58,6 +60,8 @@ _SIGNATURES = {
     "alac_pack_rows": [_P, _I, _P, _P, _I, _I, _P, _P],
     "alac_rice_lpc": [_P, _I, _I] + [_P] * 10 + [_I, _I, _P, _P, _P],
     "alac_bulk_bits": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+    "alac_enc_pred": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "alac_enc_rice": [_P, _P, _I, _I] + [_P] * 6 + [_P] * 6 + [_P],
 }
 
 
@@ -97,17 +101,49 @@ def _build() -> pathlib.Path:
         BUILD_INFO.update(seconds=0.0, log=log.read_text() if log.exists() else "")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    tag = f"{os.getpid()}.tmp"
+    tmp = out.with_suffix(f".{tag}.so")
+    objs = [out.with_suffix(f".{s.stem}.{tag}.o") for s in sources]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+    # One compiler process per source, all at once; then one link.
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-    log.write_text(res.stdout + res.stderr)
+        for s, o in zip(sources, objs)
+    ]
+    logs, failed = [], []
+    try:
+        for s, p in zip(sources, procs):
+            text = p.communicate(timeout=900)[0]
+            logs.append(f"== {s.name}\n{text}")
+            if p.returncode != 0:
+                failed.append(s.name)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    try:
+        if not failed:
+            res = subprocess.run(
+                [nvcc, *NVCC_FLAGS[:4], "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True, timeout=300,
+            )
+            logs.append(f"== link\n{res.stdout}{res.stderr}")
+            if res.returncode != 0:
+                failed.append("link")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    text = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{text}")
+    log.write_text(text)
     tmp.replace(out)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, log=res.stdout + res.stderr)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, log=text)
     return out
 
 

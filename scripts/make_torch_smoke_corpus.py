@@ -15,7 +15,14 @@ suffices) and commits what the port needs:
 * ``mono16.m4a`` — mono frames, the path that skips channel B;
 * ``expected.json`` — per file the frame count, the sample count and the
   sha256 of the PCM that ``alacnet_tpu.decode_file`` returns (``(N,
-  channels)``, C order, little-endian, in the dtype it returns).
+  channels)``, C order, little-endian, in the dtype it returns);
+* ``encode_expected.json`` — per (file, encoder config) key
+  ``"<file>|<config>"`` the frame count, the byte size and the sha256 of
+  the ``.m4a`` that ``alacnet_tpu.encode_files(device=True)`` writes from
+  that file's decoded PCM: config ``default`` (``EncoderConfig()``) for
+  every file, ``ub1`` (``EncoderConfig(uncompressed_bytes=1)``, the
+  extra-bits plane) for the 24-bit ones.  The port's encoder must write
+  the same bytes.
 
 Run from the repository root:
 
@@ -100,7 +107,48 @@ def build() -> dict[str, bytes]:
     files["expected.json"] = (
         json.dumps(expected, indent=1, sort_keys=True) + "\n"
     ).encode()
+    files["encode_expected.json"] = (
+        json.dumps(_encode_expected(files), indent=1, sort_keys=True) + "\n"
+    ).encode()
     return files
+
+
+#: Encoder configurations of encode_expected.json, and the files each
+#: covers (None: every file).
+ENCODE_CONFIGS = {
+    "default": ({}, None),
+    "ub1": ({"uncompressed_bytes": 1}, ("hires24.m4a", "fat24.m4a")),
+}
+
+
+def _encode_expected(files: dict[str, bytes]) -> dict:
+    """Encode every corpus file's decoded PCM with the JAX package's
+    pooled device encoder (one encode_files call per configuration)."""
+    import alacnet_tpu
+    from alacnet_tpu.codec.encoder import EncoderConfig
+
+    names = sorted(f for f in files if f.endswith(".m4a"))
+    decoded = dict(zip(names, alacnet_tpu.decode_streams(
+        [io.BytesIO(files[n]) for n in names]
+    )))
+    out = {}
+    for cfg_name, (kwargs, only) in ENCODE_CONFIGS.items():
+        sel = [n for n in names if only is None or n in only]
+        bufs = [io.BytesIO() for _ in sel]
+        alacnet_tpu.encode_files(
+            [decoded[n].pcm for n in sel], bufs,
+            [decoded[n].sample_rate for n in sel],
+            [decoded[n].bits_per_sample for n in sel],
+            config=EncoderConfig(**kwargs), device=True,
+        )
+        for n, buf in zip(sel, bufs):
+            data = buf.getvalue()
+            out[f"{n}|{cfg_name}"] = {
+                "frames": -(-decoded[n].pcm.shape[0] // FRAME_SAMPLES),
+                "bytes": len(data),
+                "sha256": hashlib.sha256(data).hexdigest(),
+            }
+    return out
 
 
 def main() -> int:

@@ -81,3 +81,41 @@ def test_config_validates_kernel_route():
     with pytest.raises(ValueError, match="kernel"):
         alacnet_tpu_torch.DecodeConfig(device="cpu", kernel="fused")
     assert alacnet_tpu_torch.DecodeConfig(device="cpu", kernel="torch").kernel == "torch"
+
+
+def test_port_encodes_without_jax():
+    code = (
+        "import sys, io; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "import numpy as np\n"
+        "import alacnet_tpu_torch as at\n"
+        "t = np.arange(700)\n"
+        "pcm = np.stack([t % 300 - 150, (t * 7) % 500 - 250], 1).astype(np.int32)\n"
+        "outs = [io.BytesIO(), io.BytesIO()]\n"
+        "at.encode_files([pcm, pcm[:, :1]], outs, 44100, 16, max_samples_per_frame=256,\n"
+        "                device='cpu')\n"
+        "got = at.decode_streams([io.BytesIO(o.getvalue()) for o in outs], device='cpu')\n"
+        "assert np.array_equal(got[0].pcm, pcm) and np.array_equal(got[1].pcm, pcm[:, :1])\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'alacnet_tpu')"
+        " and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = _run(["-c", code], cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_cuda_encode_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import io
+
+    import numpy as np
+
+    pcm = np.zeros((100, 2), np.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        alacnet_tpu_torch.encode_files([pcm], [io.BytesIO()], 44100)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        alacnet_tpu_torch.encode_m4a(io.BytesIO(), pcm, 44100, device="cuda")
+    # the host encoder needs no device
+    alacnet_tpu_torch.encode_files([pcm], [io.BytesIO()], 44100, device=None)
