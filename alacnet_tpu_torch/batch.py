@@ -4,7 +4,8 @@ The counterpart of ``alacnet_tpu/batch.py``: ``decode_files`` pools the
 coded frames of *all* inputs into shared device batches (each frame
 carries its own cookie parameters, so 16/24-bit, mono/stereo and
 different sample rates mix freely in one dispatch) and splits the
-decoded lanes back per file.
+decoded lanes back per file; ``decode_resumable`` decodes one file in
+chunks from a persisted ``DecodeCursor``.
 """
 
 from __future__ import annotations
@@ -159,3 +160,67 @@ def decode_file(
 ) -> DecodedAudio:
     """Decode a single .m4a file."""
     return decode_files([path], strict=strict, device=device, config=config)[0]
+
+
+@dataclasses.dataclass
+class DecodeCursor:
+    """Resumable batch-job position: (file, next frame index).
+
+    ALAC frames carry no inter-frame state, so a job checkpoints as a
+    frame cursor and resumes with a table-driven seek — the same
+    property behind ``AlacContext.set_position``.
+    """
+
+    path: str
+    next_frame: int = 0
+
+    @property
+    def done(self) -> bool:
+        return self.next_frame < 0
+
+
+def decode_resumable(
+    cursor: DecodeCursor, max_frames: int = 4096, strict: bool | None = None,
+    device: str | None = None, config: DecodeConfig | None = None,
+) -> tuple[DecodedAudio, DecodeCursor]:
+    """Decode up to ``max_frames`` frames from the cursor position.
+
+    Returns the decoded chunk and the advanced cursor (``done`` once the
+    file is exhausted).  Work can stop and resume across processes with
+    only the cursor persisted.  ``config``/``device``/``strict`` as for
+    :func:`decode_streams`; past the last frame nothing is decoded and
+    nothing launches.
+    """
+    config = resolve(config, device=device, strict=strict)
+    with open(cursor.path, "rb") as f:
+        info = demux.parse(f)
+        offsets = info.tables.frame_file_offsets()
+        sizes = info.tables.frame_byte_sizes
+        lo = cursor.next_frame
+        hi = min(lo + max_frames, len(offsets))
+        # Read only this chunk's byte range (bounded memory + I/O).
+        if hi > lo:
+            lo_byte = int(offsets[lo:hi].min())
+            hi_byte = int((offsets[lo:hi] + sizes[lo:hi]).max())
+            f.seek(lo_byte)
+            blob = np.frombuffer(f.read(hi_byte - lo_byte), np.uint8)
+    nch = info.num_channels_or_default()
+    pcm = np.zeros((0, nch), np.int32)
+    status = np.zeros(0, np.int32)
+    if hi > lo:
+        out, n, status = decode_blob(
+            blob, offsets[lo:hi] - lo_byte, sizes[lo:hi], info.params,
+            info.params.max_samples_per_frame, config=config,
+        )
+        valid = np.arange(out.shape[1])[None, :] < n[:, None]
+        pcm = out[:, :, :nch].reshape(-1, nch)[valid.reshape(-1)]
+    result = DecodedAudio(
+        pcm=pcm,
+        sample_rate=info.sample_rate_or_default(),
+        bits_per_sample=info.bits_per_sample_or_default(),
+        channels=nch,
+        path=cursor.path,
+        bad_frames=np.flatnonzero(status).astype(np.int64) + lo,
+    )
+    nxt = DecodeCursor(cursor.path, hi if hi < len(offsets) else -1)
+    return result, nxt

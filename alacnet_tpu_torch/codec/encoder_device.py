@@ -403,6 +403,34 @@ def _pack_host(prep, fetch, timings: dict | None):
     return payloads
 
 
+def pack_symbol_planes(prep, vals16, vals32, widths) -> list[bytes]:
+    """Payload bytes of a prepped chunk from its unmerged symbol planes
+    (ops/encode.rice_symbols or the ``rice_emit`` kernel, lanes as
+    :func:`_dispatch` folds them) with the native symbol packer.
+
+    The symbol-plane route: no encoder runs it (the production path
+    packs the merged pair planes), and the symbol packer has no
+    extra-bits plane, so the chunk must have ``uncompressed_bytes == 0``.
+    """
+    if prep["extra_plane"] is not None:
+        raise ValueError("the symbol packer takes no extra-bits plane")
+    F = prep["F"]
+    widths = np.ascontiguousarray(widths)
+    lane_bits = widths.astype(np.int64).sum(axis=(1, 2))
+    total_bits = prep["hbits"] + lane_bits[:F] + lane_bits[F:]
+    out_stride = int(total_bits.max()) // 8 + 8 if F else 8
+    packed = native.pack_symbol_frames_native(
+        prep["hv"], prep["hw"], prep["h_off"],
+        np.ascontiguousarray(vals16).view(np.uint16),
+        np.ascontiguousarray(vals32).view(np.uint32), widths,
+        prep["ns_f"], prep["stereo_f"].astype(np.uint8), out_stride,
+    )
+    if packed is None:
+        raise RuntimeError("the native symbol packer is unavailable")
+    out, end_bits = packed
+    return [out[f, : -(-int(end_bits[f]) // 8)].tobytes() for f in range(F)]
+
+
 def _pack_py(prep, c0, c1, c2, ws):
     """Pure-Python packing (no native library)."""
     from .bitwriter import BitWriter

@@ -1,7 +1,8 @@
 """Typed runtime configuration for the PyTorch port.
 
 Ports the fields of ``alacnet_tpu.config.DecodeConfig`` that the
-batched decode path reads, plus two the port needs:
+batched decode path and the streaming session read, plus two the port
+needs:
 
 * ``device`` — where the decode runs.  It is explicit: a config that
   names ``cuda`` on a machine without a usable card raises at
@@ -27,6 +28,8 @@ class DecodeConfig:
 
     #: Max frames per device dispatch.
     batch_limit: int = 4096
+    #: Frames decoded per window in the streaming ``AlacContext``.
+    stream_window: int = 64
     #: strict=True raises on undecodable frames; strict=False zeroes only
     #: the offending lanes and reports them in ``bad_frames``.
     strict: bool = True

@@ -21,7 +21,8 @@
 // over 64 SMs.  Planes are sample-major (S, B): the 32 lanes of a warp
 // read and write contiguous words per sample.  Each symbol takes the
 // nine-step quotient ladder of ops/encode._emit_sym, so the kernel is
-// the plain version's arithmetic step for step.  The TPU kernel's lane
+// the plain version's arithmetic step for step; the automaton lives in
+// enc_rice_common.cuh, shared with rice_emit.cu.  The TPU kernel's lane
 // tiles, 1024-lane padding and staging tiles do not carry over: the
 // kernel takes any B and S.
 //
@@ -33,62 +34,20 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "enc_rice_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 32;  // lanes per block: 2048 lanes -> 64 blocks
-constexpr int kRiceThreshold = 8;
+using namespace alac_rice;
 
-__device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
-  return (int32_t)((uint32_t)a + (uint32_t)b);
-}
-__device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
-  return (int32_t)((uint32_t)a - (uint32_t)b);
-}
-__device__ __forceinline__ int32_t wmul(int32_t a, int32_t b) {
-  return (int32_t)((uint32_t)a * (uint32_t)b);
-}
-__device__ __forceinline__ int32_t clz40(int32_t x) {
-  return x == 0 ? 40 : __clz(x);
-}
-// jax.lax.shift_left on int32: counts outside [0, 31] give 0.
-__device__ __forceinline__ int32_t shl(int32_t x, int32_t c) {
-  return (uint32_t)c > 31u ? 0 : (int32_t)((uint32_t)x << c);
-}
+constexpr int kThreads = 32;  // lanes per block: 2048 lanes -> 64 blocks
+
 // The merge's u32 shifts: c >= 32 gives 0, else the count's low 5 bits.
 __device__ __forceinline__ uint32_t shl_u(uint32_t x, int32_t c) {
   return c >= 32 ? 0u : x << (c & 31);
 }
 __device__ __forceinline__ uint32_t shr_u(uint32_t x, int32_t c) {
   return c >= 32 ? 0u : x >> (c & 31);
-}
-
-struct Sym {
-  int32_t v0, w0, v1, w1;
-};
-
-// One entropy symbol (ops/encode._emit_sym; AlacFile.cs:193-212 run
-// forward): the unary/escape field and the remainder/raw field.
-__device__ __forceinline__ Sym emit_sym(int32_t raw, int32_t rss, int32_t k,
-                                        int32_t mask) {
-  const int32_t k_safe = k < 1 ? 1 : (k > 31 ? 31 : k);
-  const int32_t m = (int32_t)(((1u << k_safe) - 1u) & (uint32_t)mask);
-  int32_t rem = raw, q = 0;
-#pragma unroll
-  for (int s = 0; s <= kRiceThreshold; ++s) {
-    const bool c = m > 0 && rem >= m;
-    rem = c ? wsub(rem, m) : rem;
-    q += c;
-  }
-  const bool esc_q = m <= 0 || q > kRiceThreshold;
-  const bool is_k1 = k == 1;
-  const bool esc = is_k1 ? raw > kRiceThreshold : esc_q;
-  const int32_t uq = is_k1 ? (raw < kRiceThreshold ? raw : kRiceThreshold) : q;
-  Sym s;
-  s.v0 = esc ? 0x1FF : wsub(shl(1, wadd(uq, 1)), 2);
-  s.w0 = esc ? 9 : wadd(uq, 1);
-  s.v1 = esc ? raw : (is_k1 ? 0 : (rem == 0 ? 0 : wadd(rem, 1)));
-  s.w1 = esc ? rss : (is_k1 ? 0 : (rem == 0 ? k_safe - 1 : k_safe));
-  return s;
 }
 
 // Append field (val, w) to the right-aligned 96-bit chunk h:m:l
@@ -115,67 +74,34 @@ __global__ void __launch_bounds__(kThreads) enc_rice_kernel(
   const int b = blockIdx.x * kThreads + threadIdx.x;
   if (b >= B) return;
 
-  const int32_t n = n_arr[b];
-  const int32_t rss = rss_arr[b];
-  const int32_t kmod = kmod_arr[b];
-  const int32_t mult = mult_arr[b];
-  const int32_t kmask = kmask_arr[b];
-
-  int32_t h = ihist_arr[b];
-  int32_t sgnmod = 0, skip = 0, bits = 0;
-  bool bad = false;
+  const Params p{n_arr[b], rss_arr[b], kmod_arr[b], mult_arr[b], kmask_arr[b]};
+  State st{ihist_arr[b], 0, 0, false};
+  int32_t bits = 0;
 
   for (int i = 0; i < S; ++i) {
     const size_t at = (size_t)i * B + b;
-    const int32_t err = errs_sb[at];
-    const int32_t zr = zr_sb[at];
-    const bool in_skip = skip > 0;
-    const bool active = i < n && !in_skip;
-
-    const int32_t dv = err > 0 ? wmul(2, err)
-                               : (err < 0 ? wsub(wmul(-2, err), 1) : 0);
-    const int32_t raw = wsub(dv, sgnmod);
-    bad = bad || (active && raw < 0);
-    const int32_t ik = 31 - kmod - clz40(wadd(h >> 9, 3));
-    const int32_t k = ik < 0 ? ik + kmod : kmod;
-    const Sym sv = emit_sym(raw, rss, k, -1);
-
-    const int32_t h2 =
-        dv > 0xFFFF ? 0xFFFF : wsub(wadd(h, wmul(dv, mult)), wmul(h, mult) >> 9);
-    const bool zcond = h2 < 128 && i + 1 < n;
-    int32_t kz = clz40(h2) + (wadd(h2, 16) >> 6) - 24;
-    kz = kz < 31 ? kz : 31;
-    const Sym sz = emit_sym(zr, 16, kz, kmask);
+    const Step e = step(st, p, i, errs_sb[at], zr_sb[at]);
 
     // Widths pass through int8, as the plain version's width planes do
     // (a no-op for every width a lane without a desync can have).
-    const bool emit_z = active && zcond;
-    const int32_t w0 = (int8_t)(active ? sv.w0 : 0);
-    const int32_t w1 = (int8_t)(active ? sv.w1 : 0);
-    const int32_t w2 = (int8_t)(emit_z ? sz.w0 : 0);
-    const int32_t w3 = (int8_t)(emit_z ? sz.w1 : 0);
+    const int32_t w0 = (int8_t)(e.emit_v ? e.sv.w0 : 0);
+    const int32_t w1 = (int8_t)(e.emit_v ? e.sv.w1 : 0);
+    const int32_t w2 = (int8_t)(e.emit_z ? e.sz.w0 : 0);
+    const int32_t w3 = (int8_t)(e.emit_z ? e.sz.w1 : 0);
     uint32_t ch = 0u, cm = 0u, cl = 0u;
-    append(ch, cm, cl, sv.v0, w0);
-    append(ch, cm, cl, sv.v1, w1);
-    append(ch, cm, cl, sz.v0, w2);
-    append(ch, cm, cl, sz.v1, w3);
+    append(ch, cm, cl, e.sv.v0, w0);
+    append(ch, cm, cl, e.sv.v1, w1);
+    append(ch, cm, cl, e.sz.v0, w2);
+    append(ch, cm, cl, e.sz.v1, w3);
     const int8_t ws = (int8_t)(w0 + w1 + w2 + w3);
     c0_sb[at] = (int32_t)ch;
     c1_sb[at] = (int32_t)cm;
     c2_sb[at] = (int32_t)cl;
     ws_sb[at] = ws;
     bits = wadd(bits, ws);
-
-    if (active) {
-      h = zcond ? 0 : h2;
-      sgnmod = zcond ? 1 : 0;
-      skip = zcond ? zr : 0;
-    } else if (in_skip && i < n) {
-      skip -= 1;
-    }
   }
   bits_out[b] = bits;
-  bad_out[b] = bad;
+  bad_out[b] = st.bad;
 }
 
 }  // namespace

@@ -10,8 +10,9 @@ Decode binds ``alac_parse_headers`` and ``alac_pack_frames`` (the
 wrappers take the library as their first argument); without a compiler,
 or with ``DecodeConfig.native`` off, the NumPy parser runs instead
 (bit-identical, slower).  The encoder's entries — the host
-``AlacEncoder`` core, the Levinson window and autocorrelation, and the
-frame packers of the batch path — keep the JAX package's signatures
+``AlacEncoder`` core, the Levinson window and autocorrelation, the
+frame packers of the batch path and the symbol-plane packer of the
+``rice_emit`` route — keep the JAX package's signatures
 (``alacnet_tpu/native.py``): each returns None when the library cannot
 be built, and its caller then takes its NumPy or Python path.
 """
@@ -45,6 +46,7 @@ _I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _I32P = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _U32P = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
 _U8P = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_U16P = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
 _I8P = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
 _F64P = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _i64 = ctypes.c_int64
@@ -133,6 +135,10 @@ def _bind_encoder(lib: ctypes.CDLL) -> None:
         ),
         "alac_predictor_errors": (
             [_I32P, _i64, _I32P, _i32, _i32, _i32, _I32P], None,
+        ),
+        "alac_pack_symbol_frames": (
+            [_U32P, _U8P, _I64P, _U16P, _U32P, _I8P,
+             _I32P, _U8P, _i64, _i64, _U8P, _i64, _I64P], None,
         ),
         "alac_pack_chunk_frames": (
             [_U32P, _U8P, _I64P, _U32P, _U8P, _U32P, _U32P, _U32P, _I8P,
@@ -301,6 +307,41 @@ def _rows_for(F: int, out_stride: int, reuse: bool):
         )
     hit[1][:] = 0
     return hit
+
+
+def pack_symbol_frames_native(
+    hv, hw, h_off, v16, v32, wid, n, stereo, out_stride: int
+):
+    """Assemble coded frames from unmerged symbol planes
+    (ops/encode.rice_symbols, or the ``rice_emit`` kernel), or None when
+    the native tier is unavailable.  No extra-bits plane: ``ub = 0``.
+
+    Returns (out (F, out_stride) uint8, end_bits (F,) int64).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    F = len(n)
+    # The writer stores every byte below each frame's end position
+    # exactly once, so the rows need no pre-zeroing.
+    out = np.empty((F, out_stride), np.uint8)
+    end_bits = np.zeros(F, np.int64)
+    lib.alac_pack_symbol_frames(
+        np.ascontiguousarray(hv, np.uint32),
+        np.ascontiguousarray(hw, np.uint8),
+        np.ascontiguousarray(h_off, np.int64),
+        np.ascontiguousarray(v16, np.uint16),
+        np.ascontiguousarray(v32, np.uint32),
+        np.ascontiguousarray(wid, np.int8),
+        np.ascontiguousarray(n, np.int32),
+        np.ascontiguousarray(stereo, np.uint8),
+        np.int64(F),
+        np.int64(v16.shape[1]),
+        out,
+        np.int64(out_stride),
+        end_bits,
+    )
+    return out, end_bits
 
 
 def pack_chunk_frames_native(

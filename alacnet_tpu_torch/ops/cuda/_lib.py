@@ -3,11 +3,14 @@
 Each ``csrc/*.cu`` file compiles to an object in its own ``nvcc``
 process, all started together, and one more ``nvcc`` call links them
 into one shared library with a plain C interface under
-``alacnet_tpu_torch/_build/``, named by a hash of the sources and flags,
+``alacnet_tpu_torch/_build/``, named by a hash of the sources, the
+headers they include (``csrc/*.cuh``) and the flags,
 at first use (so a fresh checkout builds it on its first launch).  It is
 loaded with ctypes: no PyTorch headers, so the build takes seconds.
 Each C entry launches on the stream it is given and returns
-``cudaGetLastError()``.
+``cudaGetLastError()``; :func:`launch` gives it the current stream of
+the device the tensors live on, whatever the calling thread's current
+device is.
 
 Routing (``kernel`` argument of every wrapper, ``DecodeConfig.kernel``):
 ``"auto"`` launches the kernel for a CUDA tensor and runs the plain
@@ -44,8 +47,10 @@ NVCC_FLAGS = [
 #: 256-wide chunks of a row on y.
 MAX_GRID_Y = 65535
 #: Launches per kernel since the last reset: each wrapper adds one where
-#: it launches its kernel, and nowhere else.
+#: it launches its kernel, and nowhere else (under a lock: a decode
+#: session's readahead thread launches too).
 LAUNCHES: collections.Counter = collections.Counter()
+_count_lock = threading.Lock()
 #: Seconds the last build took (0.0 when the library was already built)
 #: and the compiler's register/spill report, for chip_smoke.py.
 BUILD_INFO: dict = {}
@@ -62,11 +67,13 @@ _SIGNATURES = {
     "alac_bulk_bits": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     "alac_enc_pred": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "alac_enc_rice": [_P, _P, _I, _I] + [_P] * 6 + [_P] * 6 + [_P],
+    "alac_rice_emit": [_P, _P, _I, _I] + [_P] * 6 + [_P] * 4 + [_P],
 }
 
 
 def reset_launches() -> None:
-    LAUNCHES.clear()
+    with _count_lock:
+        LAUNCHES.clear()
 
 
 def use_kernel(t: torch.Tensor, kernel: str) -> bool:
@@ -93,7 +100,7 @@ def _nvcc() -> str:
 def _build() -> pathlib.Path:
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         h.update(s.name.encode() + s.read_bytes())
     out = BUILD_DIR / f"libalackernels-{h.hexdigest()[:16]}.so"
     log = out.with_suffix(".log")
@@ -161,14 +168,17 @@ def get_lib() -> ctypes.CDLL:
         return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry ``name`` on the current stream; raise on a refused
-    launch.  Does not synchronise."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(get_lib(), name)(*args, stream)
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry ``name`` on ``device`` (the device of its tensors),
+    on that device's current stream; raise on a refused launch.  Does
+    not synchronise."""
+    fn = getattr(get_lib(), name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
-    LAUNCHES[name.removeprefix("alac_")] += 1
+    with _count_lock:
+        LAUNCHES[name.removeprefix("alac_")] += 1
 
 
 def check_i32(name: str, t: torch.Tensor, shape: tuple, device) -> None:

@@ -58,7 +58,7 @@ def bulk_bits(
     a = torch.empty((B, S), dtype=torch.int32, device=dev)
     b = torch.empty((B, S), dtype=torch.int32, device=dev)
     _lib.launch(
-        "alac_bulk_bits", words.data_ptr(), B, W, start.data_ptr(),
+        "alac_bulk_bits", words.device, words.data_ptr(), B, W, start.data_ptr(),
         n.data_ptr(), n1.data_ptr(), n2.data_ptr(), S, a.data_ptr(),
         b.data_ptr(),
     )

@@ -76,7 +76,7 @@ def predictor_errors_fused(
     errs_sb = torch.empty((S, B), dtype=torch.int32, device=dev)
     if B and S:
         _lib.launch(
-            "alac_enc_pred", sig_sb.data_ptr(), B, S,
+            "alac_enc_pred", dev, sig_sb.data_ptr(), B, S,
             *(t.data_ptr() for t in params), lp.rc.data_ptr(), max_order,
             errs_sb.data_ptr(),
         )
@@ -123,7 +123,7 @@ def rice_merge_fused(
     bad = torch.empty((B,), dtype=torch.bool, device=dev)
     if B:
         _lib.launch(
-            "alac_enc_rice", errs_sb.data_ptr(), zr_sb.data_ptr(), B, S,
+            "alac_enc_rice", dev, errs_sb.data_ptr(), zr_sb.data_ptr(), B, S,
             *(t.data_ptr() for t in params),
             c0.data_ptr(), c1.data_ptr(), c2.data_ptr(), ws.data_ptr(),
             bits.data_ptr(), bad.data_ptr(),

@@ -115,7 +115,7 @@ def pack_rows(
         _lib.check_i32(name, t, (B,), bwords.device)
     out = torch.empty((B, W), dtype=torch.int32, device=bwords.device)
     _lib.launch(
-        "alac_pack_rows", bwords.data_ptr(), L, ow.data_ptr(),
+        "alac_pack_rows", bwords.device, bwords.data_ptr(), L, ow.data_ptr(),
         nbytes.data_ptr(), B, W, out.data_ptr(),
     )
     return out

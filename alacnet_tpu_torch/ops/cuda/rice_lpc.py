@@ -68,7 +68,7 @@ def fused_rice_lpc(
     out_sb = torch.empty((S, B), dtype=torch.int32, device=dev)
     end = torch.empty((B,), dtype=torch.int32, device=dev)
     _lib.launch(
-        "alac_rice_lpc", words.data_ptr(), B, W,
+        "alac_rice_lpc", words.device, words.data_ptr(), B, W,
         *(t.data_ptr() for t in params), rc.data_ptr(),
         S, max_order, out_sb.data_ptr(), end.data_ptr(),
     )

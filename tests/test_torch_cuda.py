@@ -367,3 +367,76 @@ def test_encode_pipeline_overlap_on_card(cuda):
     got = encode_frames_device(frames, params, cfg, chunk_frames=1, device="cuda")
     host = at.AlacEncoder(params, cfg)
     assert got == [host.encode_frame(f) for f in frames]
+
+
+# ---------------------------------------------------------------------------
+# rice_emit: the Rice emitter with unmerged symbol planes.
+# ---------------------------------------------------------------------------
+
+
+def _check_rice_emit(errs, zr, n, rp, S):
+    """Kernel against plain: every plane bit for bit, everywhere (values
+    also where their width is 0)."""
+    from alacnet_tpu_torch.ops.cuda.rice_emit import rice_symbols_fused
+
+    got = rice_symbols_fused(errs, zr, n, rp, S, kernel="cuda")
+    torch.cuda.synchronize()
+    want = rice_symbols_fused(errs, zr, n, rp, S, kernel="torch")
+    for name, g, w in zip(("vals16", "vals32", "widths", "bad"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("B", [1, 33, 2048])
+@pytest.mark.parametrize("S", [1, 255, 4096])
+def test_rice_emit_kernel_matches_plain(cuda, B, S):
+    from alacnet_tpu_torch.ops.cuda import _lib
+    from alacnet_tpu_torch.ops.cuda.enc_stages import predictor_errors_fused
+    from alacnet_tpu_torch.ops.encode import zero_run_lengths
+
+    sig, n, lp, rp = _enc_inputs(B, S, 6, cuda)
+    errs = predictor_errors_fused(sig, n, lp, S, max_order=6, kernel="cuda")
+    zr = zero_run_lengths(errs, n, S)
+    before = _lib.LAUNCHES["rice_emit"]
+    _check_rice_emit(errs, zr, n, rp, S)
+    assert _lib.LAUNCHES["rice_emit"] == before + 1
+
+
+@pytest.mark.parametrize("case", TROUBLE_CASES)
+def test_rice_emit_trouble_points(cuda, case):
+    from alacnet_tpu_torch.ops.cuda.enc_stages import predictor_errors_fused
+    from alacnet_tpu_torch.ops.encode import zero_run_lengths
+
+    d = trouble_inputs(case)
+    lp, rp = trouble_params(d, cuda)
+    sig, n = (torch.from_numpy(d[k]).to(cuda) for k in ("sig", "n"))
+    S = sig.shape[1]
+    if d["errs"] is None:
+        errs = predictor_errors_fused(sig, n, lp, S, max_order=d["max_order"])
+    else:
+        errs = torch.from_numpy(d["errs"]).to(cuda)
+    _check_rice_emit(errs, zero_run_lengths(errs, n, S), n, rp, S)
+
+
+def test_alac_context_readahead_on_card(cuda):
+    """An AlacContext on the card with window=2: the readahead decodes on
+    its worker thread across at least three windows, bit-exact to the
+    expected PCM; close() leaves no window in flight."""
+    import hashlib
+
+    import alacnet_tpu_torch
+    from alacnet_tpu_torch.ops.cuda import _lib
+
+    expected = json.loads((SMOKE / "expected.json").read_text())
+    name = "music.m4a"
+    before = _lib.LAUNCHES["rice_lpc"]
+    ctx = alacnet_tpu_torch.AlacContext(
+        io.BytesIO((SMOKE / name).read_bytes()), window=2, device="cuda"
+    )
+    pcm = ctx.read_all()
+    ctx.close()
+    assert ctx.prefetch_hits >= 3
+    want = expected[name]
+    le = np.dtype(want["dtype"]).newbyteorder("<")
+    assert hashlib.sha256(pcm.astype(le).tobytes()).hexdigest() == want["sha256"]
+    assert _lib.LAUNCHES["rice_lpc"] > before

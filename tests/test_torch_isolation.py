@@ -119,3 +119,62 @@ def test_cuda_encode_raises_without_cuda():
         alacnet_tpu_torch.encode_m4a(io.BytesIO(), pcm, 44100, device="cuda")
     # the host encoder needs no device
     alacnet_tpu_torch.encode_files([pcm], [io.BytesIO()], 44100, device=None)
+
+
+def test_port_session_api_without_jax():
+    code = (
+        "import sys, io; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "import numpy as np\n"
+        "import alacnet_tpu_torch as at\n"
+        "from alacnet_tpu_torch import cli\n"
+        f"data = open({str(FIXTURE)!r}, 'rb').read()\n"
+        "with at.AlacContext(io.BytesIO(data), window=1, device='cpu') as ctx:\n"
+        "    pcm = ctx.read_all()\n"
+        "assert pcm.shape == (700, 2), pcm.shape\n"
+        "r = at.ALACFileReader(io.BytesIO(data), device='cpu')\n"
+        "r.seek(r.length // 2)\n"
+        "assert len(r.read(r.length)) == r.length - r.length // 2\n"
+        "r.close()\n"
+        f"assert cli.main(['info', {str(FIXTURE)!r}]) == 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'alacnet_tpu')"
+        " and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = _run(["-c", code], cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_session_api_raises_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import io
+
+    from alacnet_tpu_torch import cli
+
+    import numpy as np
+
+    from alacnet_tpu_torch.pcm import write_wav
+
+    data = FIXTURE.read_bytes()
+    wav = tmp_path / "in.wav"
+    with open(wav, "wb") as f:
+        write_wav(f, np.zeros((300, 2), np.int32), 44100, 16, 2)
+    for make in (
+        lambda: alacnet_tpu_torch.AlacContext(io.BytesIO(data)),
+        lambda: alacnet_tpu_torch.AlacContext(io.BytesIO(data), device="cuda"),
+        lambda: alacnet_tpu_torch.ALACFileReader(io.BytesIO(data)),
+        lambda: alacnet_tpu_torch.decode_resumable(alacnet_tpu_torch.DecodeCursor(str(FIXTURE))),
+        lambda: cli.main(["decode", str(FIXTURE), str(tmp_path / "x.wav")]),
+        lambda: cli.main(["batch-decode", str(FIXTURE)]),
+        lambda: cli.main(["verify", str(FIXTURE)]),
+        lambda: cli.main(["encode", str(wav), str(tmp_path / "y.m4a")]),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert not (tmp_path / "x.wav").exists()
+    assert cli.main(["encode", str(wav), str(tmp_path / "y.m4a"), "--host"]) == 0
+    with alacnet_tpu_torch.AlacContext(io.BytesIO(data), device="cpu") as ctx:
+        assert ctx.read_all().shape == (700, 2)
+    assert cli.main(["decode", str(FIXTURE), str(tmp_path / "x.wav"), "--device", "cpu"]) == 0
