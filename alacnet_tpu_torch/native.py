@@ -1,10 +1,11 @@
 """ctypes loader for the native host tier.
 
-The C++ source is the JAX package's ``alacnet_tpu/_native/host.cpp``,
-compiled here by file path (reading a source file imports nothing, so
-the port still never imports JAX) with the same g++ flags, into the
-port's own ``_build/`` directory under a name that carries a hash of the
-source and flags.  This is host code, not the device path.
+The C++ source is the port's own ``_native/host.cpp``, a byte-for-byte
+copy of the JAX package's host tier (``tests/test_torch_isolation.py``
+holds the two equal), compiled with the same g++ flags into the port's
+``_build/`` directory under a name that carries a hash of the source and
+flags.  The port reads no file of the JAX package.  This is host code,
+not the device path.
 
 Decode binds ``alac_parse_headers`` and ``alac_pack_frames`` (the
 wrappers take the library as their first argument); without a compiler,
@@ -28,11 +29,9 @@ import threading
 
 import numpy as np
 
-_SRC = (
-    pathlib.Path(__file__).resolve().parent.parent
-    / "alacnet_tpu" / "_native" / "host.cpp"
-)
-BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+_PKG = pathlib.Path(__file__).resolve().parent
+_SRC = _PKG / "_native" / "host.cpp"
+BUILD_DIR = _PKG / "_build"
 #: ABI revision of host.cpp this binding matches.
 ABI_VERSION = 5
 #: -fwrapv: the codec core relies on wrapping int32 arithmetic.

@@ -44,7 +44,7 @@ NVCC_FLAGS = [
 ]
 
 #: Largest grid y dimension: the per-element kernels put lanes on x and
-#: 256-wide chunks of a row on y.
+#: fixed-width chunks of a row on y.
 MAX_GRID_Y = 65535
 #: Launches per kernel since the last reset: each wrapper adds one where
 #: it launches its kernel, and nowhere else (under a lock: a decode
@@ -62,8 +62,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C signatures: every pointer and the stream as c_void_p, ints as c_int.
 _SIGNATURES = {
-    "alac_pack_rows": [_P, _I, _P, _P, _I, _I, _P, _P],
-    "alac_rice_lpc": [_P, _I, _I] + [_P] * 10 + [_I, _I, _P, _P, _P],
+    "alac_pack_rows": [_P, _I, _P, _P, _I, _I, _I, _P, _P],
+    "alac_rice_lpc": [_P, _I, _I] + [_P] * 10 + [_I, _I, _I, _P, _P, _P],
     "alac_bulk_bits": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     "alac_enc_pred": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "alac_enc_rice": [_P, _P, _I, _I] + [_P] * 6 + [_P] * 6 + [_P],
@@ -172,9 +172,19 @@ def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry ``name`` on ``device`` (the device of its tensors),
     on that device's current stream; raise on a refused launch.  Does
     not synchronise."""
-    fn = getattr(get_lib(), name)
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    # A call moves a few microseconds of work for the smallest kernels,
+    # so the host path stays short: the raw stream handle without a
+    # Stream object (the accessor PyTorch's own compiled kernels use),
+    # and a device switch only where the thread's current device is
+    # another.
+    fn = getattr(_lib if _lib is not None else get_lib(), name)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
     with _count_lock:

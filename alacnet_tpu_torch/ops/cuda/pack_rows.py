@@ -26,6 +26,8 @@ from . import _lib
 QL = 128
 #: Padding granularity of the blob, in words.
 ALIGN = 1024
+#: Words of a row one block of the kernel writes (``kChunk``).
+ROW_CHUNK = 1024
 
 
 def host_le_words(
@@ -108,15 +110,20 @@ def pack_rows(
         return pack_rows_plain(bwords, ow, nbytes, W)
     B = ow.shape[0]
     L = bwords.numel()
-    if not 0 < W <= L or L >= 1 << 31 or W > _lib.MAX_GRID_Y * 256:
+    if not 0 < W <= L or L >= 1 << 31 or W > _lib.MAX_GRID_Y * ROW_CHUNK:
         raise ValueError(f"pack_rows: need 0 < W <= {L} < 2**31, got W={W}")
-    _lib.check_i32("bwords", bwords, tuple(bwords.shape), bwords.device)
+    dev = bwords.device
+    _lib.check_i32("bwords", bwords, tuple(bwords.shape), dev)
     for name, t in (("ow", ow), ("nbytes", nbytes)):
-        _lib.check_i32(name, t, (B,), bwords.device)
-    out = torch.empty((B, W), dtype=torch.int32, device=bwords.device)
+        _lib.check_i32(name, t, (B,), dev)
+    out = torch.empty((B, W), dtype=torch.int32, device=dev)
+    # 16-byte copies need 16-byte rows on both sides (the main path's W
+    # is a multiple of 256 words); any other shape moves word by word.
+    src = bwords.data_ptr()
+    vec4 = W % 4 == 0 and L % 4 == 0 and src % 16 == 0
     _lib.launch(
-        "alac_pack_rows", bwords.device, bwords.data_ptr(), L, ow.data_ptr(),
-        nbytes.data_ptr(), B, W, out.data_ptr(),
+        "alac_pack_rows", dev, src, L, ow.data_ptr(),
+        nbytes.data_ptr(), B, W, int(vec4), out.data_ptr(),
     )
     return out
 

@@ -70,10 +70,15 @@ on failure, each printing its seconds:
    ``encode_expected.json``; ``rice_lpc`` launches must rise.  Then the
    session API's read rate over one long stream (the music file's PCM
    tiled to 1,504 frames, encoded by the port): ``AlacContext.read_all``
-   at the default window and ``ALACFileReader.read(65536)`` loops.
+   at the default window and ``ALACFileReader.read(65536)`` loops, and
+   ``rice_lpc``'s time per pass at that shape (the calls of one more
+   ``read_all``, each through the kernel again, CUDA events).
 
 In the ``kernels`` line, ``ms`` is the kernel's time summed over every
-call the path made (mean of 5 launches each), ``plain_ms`` the plain
+call the path made (mean of 5 launches each from the host, CUDA
+events around them: the wrapper's host work counts where it outlasts
+the kernel; ``device_ms``, where present, is the time on the card
+alone, from CUDA-graph replays), ``plain_ms`` the plain
 version's over the compared calls (``plain_calls`` of ``calls``);
 ``bytes`` is what those calls must move (each input byte read once,
 each output byte written once, counting what the data needs: live
@@ -82,7 +87,10 @@ their int32 operations (``INT_OPS``), and ``bound_ms`` the sum over
 the calls of the larger of bytes over ``HBM_BYTES_PER_S`` and
 operations over ``INT32_OPS_PER_S``; ``library_ms`` is the time of one
 PyTorch call computing the same function on the same inputs where one
-exists (``pack_rows``: ``torch.take`` of the rows), else null.  Numbers
+exists (``pack_rows``: ``torch.take`` of the rows, timed as ``ms``),
+else null; the ``kernel_check`` line also times the two in turns
+(``time_against_library``), and ``library_over_kernel`` is the ratio of
+their medians from the host.  Numbers
 go on JSON lines; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Without CUDA, or outside a checkout, it exits non-zero and prints no
@@ -146,6 +154,10 @@ INT_OPS = {
     "enc_rice": {"sample": 135},
     "rice_emit": {"sample": 115},
 }
+#: Rounds of (kernel, library call) in turns per call where a library
+#: call computes the kernel's function (``pack_rows``: ``torch.take``),
+#: each timing 5 calls from the host and a CUDA graph of 5 calls.
+ALT_ROUNDS = 7
 #: Frames per window and per resumable chunk of phase 7's checks.
 API_WINDOW = 4
 RESUME_FRAMES = 5
@@ -198,6 +210,14 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def load_corpus():
@@ -335,6 +355,64 @@ def library_call(name: str, args):
     return lambda: torch.take(flat, idx)
 
 
+def graph_replay_ms(fns, reps: int = 5):
+    """For each zero-argument callable, a function that times it on the
+    card without the host in the way: ``reps`` calls captured in a CUDA
+    graph (after a warm-up call), each timing one replay with CUDA
+    events and returning ms per call.  The graphs keep their outputs,
+    the timers their callables."""
+    import torch
+
+    timers = []
+    for fn in fns:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        # Captured on a side stream by hand: ``torch.cuda.graph`` would
+        # empty the allocator's cache first, and the next timing from
+        # the host would then pay for fresh device allocations.
+        with torch.cuda.stream(side):
+            fn()
+            graph.capture_begin()
+            for _ in range(reps):
+                fn()
+            graph.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+        graph.replay()
+        # the timer holds fn too: the graph reads whatever fn's closure
+        # holds (a library call's index tensor), which must outlive it
+        timers.append(lambda g=graph, keep=fn: cuda_ms(g.replay, 1) / reps)
+    return timers
+
+
+def time_against_library(kernel, lib) -> dict:
+    """One call's times.  ``ms``: the kernel's, the mean of 5 launches
+    from the host (CUDA events around them).  Where a library call
+    computes the same function: ``library_ms``, its time measured the
+    same way; then both in turns, ``ALT_ROUNDS`` rounds of (kernel,
+    library), each timed from the host as ``ms`` and on the card alone
+    (``graph_replay_ms``: a few microseconds of kernel can hide under
+    tens of microseconds of the wrapper's host work); the medians of the
+    rounds are ``alt_ms``, ``alt_library_ms``, ``device_ms`` and
+    ``library_device_ms``."""
+    import statistics
+
+    out = {"ms": cuda_ms(kernel, 5)}
+    if lib is None:
+        return out
+    lib()
+    out["library_ms"] = cuda_ms(lib, 5)
+    k_dev, l_dev = graph_replay_ms([kernel, lib])
+    runs = {k: [] for k in ("alt_ms", "alt_library_ms", "device_ms", "library_device_ms")}
+    for _ in range(ALT_ROUNDS):
+        runs["alt_ms"].append(cuda_ms(kernel, 5))
+        runs["alt_library_ms"].append(cuda_ms(lib, 5))
+        runs["device_ms"].append(k_dev())
+        runs["library_device_ms"].append(l_dev())
+    out.update({k: statistics.median(v) for k, v in runs.items()})
+    return out
+
+
 def compare_kernels(calls, fns, groups, budget_s) -> dict:
     """Each recorded call through the kernel, and the first call of
     each group (``groups[name][i]``) — then further calls while the
@@ -352,7 +430,7 @@ def compare_kernels(calls, fns, groups, budget_s) -> dict:
         err, ms, ms_all, plain_ms, shapes, compared = 0, 0.0, 0.0, 0.0, [], []
         nbytes = nops = 0
         bound_s = bytes_s = ops_s = 0.0
-        lib_ms = None
+        lib_times = {}
         seen = set()
         # Warm-up: both versions on the first recorded call.
         args, kw = recorded[0]
@@ -361,18 +439,19 @@ def compare_kernels(calls, fns, groups, budget_s) -> dict:
         torch.cuda.synchronize()
         for idx, (args, kw) in enumerate(recorded):
             got = fn(*args, **{**kw, "kernel": "cuda"})
-            k_ms = cuda_ms(lambda: fn(*args, **{**kw, "kernel": "cuda"}), 5)
+            t = time_against_library(
+                lambda: fn(*args, **{**kw, "kernel": "cuda"}), library_call(name, args)
+            )
+            k_ms = t.pop("ms")
             ms_all += k_ms
+            for key, v in t.items():
+                lib_times[key] = lib_times.get(key, 0.0) + v
             got = got if isinstance(got, tuple) else (got,)
             shapes.append(list(got[0].shape))
             b, o = call_work(name, args, got)
             nbytes, nops = nbytes + b, nops + o
             bytes_s, ops_s = bytes_s + b / HBM_BYTES_PER_S, ops_s + o / INT32_OPS_PER_S
             bound_s += max(b / HBM_BYTES_PER_S, o / INT32_OPS_PER_S)
-            lib = library_call(name, args)
-            if lib is not None:
-                lib()
-                lib_ms = (lib_ms or 0.0) + cuda_ms(lib, 5)
             group = groups[name][idx]
             if group in seen and plain_ms / 1e3 >= budget_s:
                 continue
@@ -399,8 +478,16 @@ def compare_kernels(calls, fns, groups, budget_s) -> dict:
             "ms_all_calls": ms_all, "bytes": nbytes, "int_ops": nops,
             "bound_ms": bound_s * 1e3,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "library_ms": lib_ms,
+            "library_ms": lib_times.get("library_ms"),
+            "bound_share": bound_s * 1e3 / ms_all if ms_all else None,
         }
+        if lib_times:
+            # from the rounds in turns; a ratio > 1: the kernel is faster
+            results[name].update(lib_times)
+            results[name]["library_over_kernel"] = lib_times["alt_library_ms"] / lib_times["alt_ms"]
+            results[name]["library_over_kernel_device"] = (
+                lib_times["library_device_ms"] / lib_times["device_ms"])
+            results[name]["device_bound_share"] = bound_s * 1e3 / lib_times["device_ms"]
         emit({"kernel_check": name, **results[name]})
     return results
 
@@ -813,20 +900,27 @@ def check_session_api(names, data, decoded, expected, enc_expected) -> dict:
     return out
 
 
+def long_stream(music) -> tuple:
+    """The session API's long stream: the music file's PCM tiled
+    LONG_COPIES times, encoded by the port; returns (pcm, .m4a bytes)."""
+    import alacnet_tpu_torch as at
+
+    pcm = np.tile(music.pcm, (LONG_COPIES, 1))
+    buf = io.BytesIO()
+    at.encode_files([pcm], [buf], music.sample_rate, music.bits_per_sample,
+                    device=DEVICE)
+    return pcm, buf.getvalue()
+
+
 def time_session_api(decoded, card: str) -> dict:
-    """The session API's read rate over one long stream: the music
-    file's PCM tiled LONG_COPIES times, encoded by the port."""
+    """The session API's read rate over the long stream."""
     import torch
 
     import alacnet_tpu_torch as at
     from alacnet_tpu_torch.pcm import format_pcm_bytes
 
     music = decoded["music.m4a"]
-    pcm = np.tile(music.pcm, (LONG_COPIES, 1))
-    buf = io.BytesIO()
-    at.encode_files([pcm], [buf], music.sample_rate, music.bits_per_sample,
-                    device=DEVICE)
-    data = buf.getvalue()
+    pcm, data = long_stream(music)
     samples = pcm.shape[0]
     ref = format_pcm_bytes(pcm, music.bits_per_sample // 8)
 
@@ -849,10 +943,48 @@ def time_session_api(decoded, card: str) -> dict:
         "prefetch_hits": hits,
         "context_read_all_s": ctx_s, "context_msamples_per_s": samples / ctx_s / 1e6,
         "reader_read_65536_s": reader_s,
-        "reader_msamples_per_s": samples / reader_s / 1e6, "card": card,
+        "reader_msamples_per_s": samples / reader_s / 1e6,
+        "rice_lpc_pass": time_session_passes(data), "card": card,
     }
     emit({"session_api_rate": out})
     return out
+
+
+def record_session_calls(data: bytes) -> list:
+    """Every ``rice_lpc`` call, as (args, kwargs), of one
+    ``AlacContext.read_all`` of ``data`` (two passes a window)."""
+    import alacnet_tpu_torch as at
+
+    calls = []
+
+    def make(key, orig):
+        def rec(*args, **kwargs):
+            calls.append((args, kwargs))
+            return orig(*args, **kwargs)
+        return rec
+
+    with wrapped({"rice_lpc": CALL_SITES["rice_lpc"]}, make):
+        with at.AlacContext(io.BytesIO(data), device=DEVICE) as ctx:
+            ctx.read_all()
+    return calls
+
+
+def time_session_passes(data: bytes) -> dict:
+    """``rice_lpc``'s time per pass at the session shape: each recorded
+    call (``record_session_calls``) through the kernel again (CUDA
+    events, the mean of 5 launches after a warm-up)."""
+    import statistics
+
+    calls = record_session_calls(data)
+    fn = decode_fns()["rice_lpc"]
+    ms = []
+    for args, kw in calls:
+        run = lambda: fn(*args, **{**kw, "kernel": "cuda"})  # noqa: E731
+        run()
+        ms.append(cuda_ms(run, 5))
+    return {"passes": len(calls), "lanes": sorted({a[0].shape[0] for a, _ in calls}),
+            "mean_ms": statistics.fmean(ms), "median_ms": statistics.median(ms),
+            "max_ms": max(ms), "sum_ms": sum(ms)}
 
 
 def main() -> int:
@@ -870,10 +1002,7 @@ def main() -> int:
     from alacnet_tpu_torch import native
     from alacnet_tpu_torch.ops.cuda import _lib
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     emit({"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
@@ -940,7 +1069,8 @@ def main() -> int:
          "replaces": KERNELS[k], "path": KERNEL_PATHS[k], "launches": launches[k],
          "max_abs_err": checks[k]["max_abs_err"], "calls": checks[k]["calls"],
          "plain_calls": len(checks[k]["compared_calls"]),
-         "ms": checks[k]["ms_all_calls"], "plain_ms": checks[k]["plain_ms"],
+         "ms": checks[k]["ms_all_calls"], "device_ms": checks[k].get("device_ms"),
+         "plain_ms": checks[k]["plain_ms"],
          "bytes": checks[k]["bytes"], "int_ops": checks[k]["int_ops"],
          "bound_ms": checks[k]["bound_ms"], "bound_by": checks[k]["bound_by"],
          "library_ms": checks[k]["library_ms"]}

@@ -115,6 +115,210 @@ def test_decode_streams_on_card_matches_expected(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The decode kernels' structure: rice_lpc's order buckets, word-ring chunks
+# and residual-ring slots; pack_rows's vector and scalar paths.
+# ---------------------------------------------------------------------------
+
+#: Orders at every edge of rice_lpc's order buckets (4, 6, 8, 12, 16, 31).
+BUCKET_EDGE_ORDERS = (0, 1, 4, 5, 6, 7, 8, 9, 12, 13, 16, 17, 30, 31)
+#: Frame length of the synthetic lanes (the plain version runs a Python
+#: loop over samples, so it stays short; it still spans 32 residual-ring
+#: slots and many word-ring chunks).
+LPC_FRAME = 1024
+
+
+def lpc_frames(orders, seed=0):
+    """Encoded stereo 16-bit frames, one per order, each with a silence
+    (samples 40-199; zero runs across several 32-sample slots), a
+    full-scale noise burst of escapes (300-419) and
+    a music-like rest; the last frame is partial (777 samples, not a
+    multiple of a slot).  Returns (payloads, CodecParams)."""
+    from alacnet_tpu_torch.codec.cookie import default_cookie
+    from alacnet_tpu_torch.codec.encoder import AlacEncoder, EncoderConfig
+
+    params = default_cookie(44100, 16, 2, LPC_FRAME)
+    rng = np.random.default_rng(seed)
+    payloads = []
+    for f, order in enumerate(orders):
+        t = np.arange(LPC_FRAME)[:, None]
+        pcm = 2500 * np.sin(t * (0.01 + 0.003 * f) + np.array([0, 1])) + rng.normal(0, 30, (LPC_FRAME, 2))
+        pcm[40:200] = 0
+        pcm[300:420] = rng.integers(-32768, 32768, (120, 2))
+        pcm = np.clip(pcm, -32768, 32767).astype(np.int32)
+        if f == len(orders) - 1:
+            pcm = pcm[:777]
+        enc = AlacEncoder(params, EncoderConfig(order=order))
+        payloads.append(enc.encode_frame(pcm))
+    return payloads, params
+
+
+def lpc_batch(orders, B, dev, seed=0):
+    """B lanes cycling over the frames of ``lpc_frames(orders)``, as the
+    decode path hands them to fused_rice_lpc: (words, meta).  Every 5th
+    lane has n = 0 beside live ones."""
+    from alacnet_tpu_torch.codec.framemeta_vec import parse_frame_headers_vec
+    from alacnet_tpu_torch.ops.frame_decode import FrameMetaArrays
+
+    payloads, params = lpc_frames(orders, seed)
+    fb = parse_frame_headers_vec([payloads[i % len(payloads)] for i in range(B)], params)
+    assert set(fb.order[:, 0].tolist()) == set(orders[:B])
+    fb.n_samples[np.arange(B) % 5 == 3] = 0
+    words = torch.from_numpy(np.ascontiguousarray(fb.words).view(np.int32)).to(dev)
+    meta = FrameMetaArrays.from_packed(FrameMetaArrays.pack_host(fb), dev)
+    return words, meta
+
+
+def lpc_channels(words, m, fn, S=LPC_FRAME, **kw):
+    """Channel A, then channel B from A's end, as frame_decode runs them;
+    returns [(out, end), (out, end)].  ``max_order`` as the decode path
+    computes it: the largest live order below 31."""
+    n = torch.where(m.is_compressed, torch.clamp(m.n_samples, 0, S), 0)
+    live = (n > 0)[:, None] & torch.ones_like(m.order, dtype=torch.bool)
+    orders = m.order[live & (m.order != 31)]
+    max_order = int(orders.max()) if orders.numel() else 0
+    res, start = [], m.entropy_pos
+    for c, nc in ((0, n), (1, torch.where(m.is_stereo, n, 0))):
+        out, end = fn(words, start, nc, m.rss, m.kmod, m.init_history,
+                      m.rice_mult[:, c], m.kmask, m.order[:, c], m.quant[:, c],
+                      m.rc[:, c].contiguous(), S, max_order=max_order, **kw)
+        res.append((out, end))
+        start = torch.clamp(end, min=0)
+    return res
+
+
+def _check_rice_lpc(words, m):
+    from alacnet_tpu_torch.ops.cuda.rice_lpc import fused_rice_lpc
+
+    got = lpc_channels(words, m, fused_rice_lpc, kernel="cuda")
+    torch.cuda.synchronize()
+    want = lpc_channels(words, m, fused_rice_lpc, kernel="torch")
+    for (go, ge), (wo, we) in zip(got, want):
+        assert torch.equal(go, wo) and torch.equal(ge, we)
+    return want
+
+
+@pytest.mark.parametrize("orders", [(0, 1, 4), (5, 6), (7, 8), (9, 12), (13, 16),
+                                    (17, 30, 31), BUCKET_EDGE_ORDERS],
+                         ids=lambda o: "-".join(map(str, o)))
+def test_rice_lpc_order_buckets(cuda, orders):
+    """Each order bucket at its edges (and one batch of all of them, the
+    widest bucket), channel B from channel A's end, n = 0 lanes."""
+    words, m = lpc_batch(orders, 3 * len(orders), cuda)
+    _check_rice_lpc(words, m)
+
+
+@pytest.mark.parametrize("B", [1, 33, 128, 4096])
+def test_rice_lpc_lane_counts(cuda, B):
+    """One lane, a partial block, the session window's 128 lanes and a
+    pooled span's 4096."""
+    from alacnet_tpu_torch.ops.cuda import _lib
+
+    words, m = lpc_batch(BUCKET_EDGE_ORDERS, B, cuda)
+    _lib.reset_launches()
+    _check_rice_lpc(words, m)
+    assert _lib.LAUNCHES["rice_lpc"] == 2
+
+
+def test_rice_lpc_zero_runs_and_escapes_cross_ring_chunks(cuda):
+    """The silence gives zero residuals over samples ~50-199, coded as
+    zero runs once the Rice history has decayed, across residual-ring
+    slots of 32 samples; the noise burst is a string of escapes over
+    several 16-word chunks of the word ring.  Both sides agree."""
+    from alacnet_tpu_torch.ops.rice import RiceParams, rice_decode
+
+    words, m = lpc_batch((8,), 1, cuda)
+    n = torch.clamp(m.n_samples, 0, LPC_FRAME)
+    err, end = rice_decode(words, m.entropy_pos, n, RiceParams(
+        m.rss, m.kmod, m.init_history, m.rice_mult[:, 0], m.kmask), LPC_FRAME)
+    assert (err[0, 56:192] == 0).all()  # zero residuals across slot edges
+    assert err[0, 300:420].abs().max() > 1 << 12  # escapes
+    # the burst's codes span more than one 16-word chunk
+    assert int(end[0]) - int(m.entropy_pos[0]) > 32 * 16 * 2
+    _check_rice_lpc(words, m)
+
+
+def test_rice_lpc_cursor_reaches_row_end(cuda):
+    """Rows cut two words past the furthest bit any lane consumes, so the
+    kernel's last reads clip to the row's last word and its word ring's
+    last chunk is partial; the plain version's window still holds every
+    consumed bit, so the two must agree."""
+    from alacnet_tpu_torch.ops.cuda.rice_lpc import fused_rice_lpc
+
+    words, m = lpc_batch((4, 8, 31), 6, cuda)
+    ends = [e for _, e in lpc_channels(words, m, fused_rice_lpc, kernel="torch")]
+    W = int(torch.maximum(*ends).max()) // 32 + 2
+    W += W % 16 == 0  # keep the ring's last chunk partial
+    assert W < words.shape[1]
+    _check_rice_lpc(words[:, :W].contiguous(), m)
+
+
+def random_lpc_inputs(seed, B=40, W=2048, S=400):
+    """NumPy int32 inputs of fused_rice_lpc (words, start, n, rss, kmod,
+    init_history, mult, kmask, order, quant, rc) from random rows: a
+    quarter of the rows mostly one bits (long unary prefixes: escapes),
+    a quarter mostly zero bits (short codes, zero runs); parameters in
+    the ranges a stream header gives (kmask = 2**kmod - 1, coefficients
+    zero past the order) with the Rice multiplier below 64.  Rows are
+    wide enough that no lane's cursor nears their end."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(-(1 << 31), 1 << 31, (B, W), dtype=np.int64).astype(np.int32)
+    words[::4] |= rng.integers(0, 1 << 30, (len(range(0, B, 4)), W)).astype(np.int32) << 1
+    words[1::4] &= rng.integers(0, 1 << 8, (len(range(1, B, 4)), W)).astype(np.int32)
+    order = rng.integers(0, 32, B)
+    kmod = rng.integers(0, 16, B)
+    cols = (rng.integers(0, 64, B), rng.integers(0, S + 1, B),
+            rng.choice([16, 17, 20, 21, 24, 25], B), kmod, rng.integers(0, 1 << 16, B),
+            rng.integers(0, 64, B), (1 << kmod) - 1, order, rng.integers(0, 16, B))
+    rc = np.where(np.arange(32)[None, :] <= order[:, None],
+                  rng.integers(-3000, 3000, (B, 32)), 0)
+    return tuple(np.ascontiguousarray(a, np.int32) for a in (words, *cols, rc)), S
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rice_lpc_random_rows(cuda, seed):
+    """Random rows and header-range parameters, every order bucket."""
+    from alacnet_tpu_torch.ops.cuda.rice_lpc import fused_rice_lpc
+
+    arrays, S = random_lpc_inputs(seed)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    order = arrays[8]
+    max_order = int(order[order != 31].max())
+    out, end = fused_rice_lpc(*args, S, max_order=max_order, kernel="cuda")
+    torch.cuda.synchronize()
+    p_out, p_end = fused_rice_lpc(*args, S, kernel="torch")
+    assert torch.equal(out, p_out) and torch.equal(end, p_end)
+
+
+@pytest.mark.parametrize("W", [256, 257, 258, 259, 1027])
+@pytest.mark.parametrize("B", [1, 4096])
+def test_pack_rows_paths(cuda, B, W):
+    """W % 4 in {0, 1, 2, 3} (vector and scalar paths); nbytes of 0,
+    1-3, ordinary and past 4 W; ow below 0 and past L - W (clipped) and
+    at every word offset mod 4."""
+    from alacnet_tpu_torch.ops.cuda.pack_rows import blob_words, pack_rows
+
+    rng = np.random.default_rng(W + B)
+    blob = rng.integers(0, 256, 4 * W * 8 + 13, dtype=np.uint8)
+    bw = blob_words(blob, cuda, max_w=W + 8)
+    L = bw.numel()
+    ow = rng.integers(0, L - W, B).astype(np.int32)
+    nb = rng.integers(0, 4 * W + 1, B).astype(np.int32)
+    special_ow = [-5, L - W + 3, 0, L - W, 1, 2, 3]
+    special_nb = [0, 1, 2, 3, 4 * W + 9, 4 * W, 5]
+    k = min(B, len(special_ow))
+    ow[:k], nb[:k] = special_ow[:k], special_nb[:k]
+    ow_t, nb_t = torch.from_numpy(ow).to(cuda), torch.from_numpy(nb).to(cuda)
+    got = pack_rows(bw, ow_t, nb_t, W, kernel="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, pack_rows(bw, ow_t, nb_t, W, kernel="torch"))
+    # a blob view off 16-byte alignment takes the scalar path
+    off = bw.reshape(-1)[1:]
+    got = pack_rows(off, ow_t, nb_t, W, kernel="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, pack_rows(off, ow_t, nb_t, W, kernel="torch"))
+
+
+# ---------------------------------------------------------------------------
 # Encoder kernels: enc_pred and enc_rice against their plain versions.
 # ---------------------------------------------------------------------------
 

@@ -1,9 +1,11 @@
 """The port stands alone: it never imports JAX, it never falls back to
 the CPU on its own, and chip_smoke.py refuses to run without a card."""
 
+import ast
 import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -178,3 +180,59 @@ def test_session_api_raises_without_cuda(tmp_path):
     with alacnet_tpu_torch.AlacContext(io.BytesIO(data), device="cpu") as ctx:
         assert ctx.read_all().shape == (700, 2)
     assert cli.main(["decode", str(FIXTURE), str(tmp_path / "x.wav"), "--device", "cpu"]) == 0
+
+
+def test_native_source_is_the_ports_own():
+    from alacnet_tpu_torch import native
+
+    port = ROOT / "alacnet_tpu_torch"
+    assert native._SRC.resolve().is_relative_to(port.resolve())
+    assert native._SRC.exists()
+
+
+def test_native_source_equals_the_reference():
+    """The port's copy of the host tier and the JAX package's stay byte
+    for byte equal, so the two cannot drift (test code only: the port
+    itself never reads the reference's file)."""
+    copy = ROOT / "alacnet_tpu_torch" / "_native" / "host.cpp"
+    ref = ROOT / "alacnet_tpu" / "_native" / "host.cpp"
+    assert copy.read_bytes() == ref.read_bytes()
+
+
+#: A provenance citation ("alacnet_tpu/ops/pallas/pack_rows.py:227"): a
+#: file and line, never a path the code opens.
+_CITATION = re.compile(r"^alacnet_tpu/[\w/]+\.py:\d+$")
+
+
+def _reference_path_literals(path: pathlib.Path) -> list[str]:
+    """String literals of ``path`` (docstrings aside) that name the JAX
+    package as a path or a path component."""
+    tree = ast.parse(path.read_text())
+    docs = {
+        id(node.body[0].value)
+        for node in ast.walk(tree)
+        if isinstance(node, (ast.Module, ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+        and node.body and isinstance(node.body[0], ast.Expr)
+        and isinstance(node.body[0].value, ast.Constant)
+    }
+    bad = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Constant) or not isinstance(node.value, str):
+            continue
+        if id(node) in docs or _CITATION.match(node.value):
+            continue
+        if re.search(r"(^|[/\\])alacnet_tpu([/\\]|$)", node.value):
+            bad.append(f"{path.name}:{node.lineno}: {node.value!r}")
+    return bad
+
+
+def test_port_builds_no_path_into_the_reference(tmp_path):
+    files = sorted((ROOT / "alacnet_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [b for f in files for b in _reference_path_literals(f)]
+    assert not bad, bad
+    # the scan catches the pattern it is for (the old native.py's)
+    probe = tmp_path / "probe.py"
+    probe.write_text('SRC = ROOT / "alacnet_tpu" / "_native" / "host.cpp"\n'
+                     'CITE = "alacnet_tpu/ops/pallas/pack_rows.py:227"\n')
+    assert len(_reference_path_literals(probe)) == 1

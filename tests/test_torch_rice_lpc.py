@@ -127,3 +127,16 @@ def test_reverse_coefs_matches_jax():
     coefs = rng.integers(-32768, 32768, (40, 31)).astype(np.int32)
     order = np.concatenate([np.arange(32), rng.integers(0, 32, 8)]).astype(np.int32)
     np.testing.assert_array_equal(t_reverse(coefs, order), j_reverse(coefs, order))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_matches_jax_scan_random_rows(seed):
+    """Random rows and header-range parameters (the card tests' inputs):
+    the plain version against the JAX scan, samples and end bits."""
+    from .test_torch_cuda import random_lpc_inputs
+
+    arrays, S = random_lpc_inputs(seed)
+    j_out, j_end = _jax_channel(*map(jnp.asarray, arrays), S=S)
+    t_out, t_end = fused_rice_lpc(*map(torch.from_numpy, arrays), S)
+    np.testing.assert_array_equal(t_out.numpy(), np.asarray(j_out))
+    np.testing.assert_array_equal(t_end.numpy(), np.asarray(j_end))
