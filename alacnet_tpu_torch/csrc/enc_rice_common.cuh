@@ -1,7 +1,14 @@
 // The Rice / adaptive-Golomb emitter automaton of the ALAC encoder, one
-// channel per thread: the per-sample step shared by enc_rice.cu (fields
-// merged into 96-bit chunks) and rice_emit.cu (fields written unmerged),
-// so the two kernels cannot drift apart.
+// channel per thread, in two steps that both kernels of the automaton
+// share, so they cannot drift apart:
+//  - state_step: the serial part of a sample (dv, raw, the desync flag,
+//    k, the history update h2, the zero-run test, kz, and the history /
+//    sign-modifier / skip update);
+//  - symbol_step: the two symbols of a sample (value, zero run) from
+//    what state_step handed over; no state.
+// rice_emit.cu (fields written unmerged) runs both in one thread, one
+// after the other; enc_rice.cu (fields merged into 96-bit chunks) runs
+// state_step in its state warp and symbol_step in its emit warps.
 //
 // The step is ops/encode.rice_symbols' state machine (the decoder's
 // EntropyRiceDecode run forward, AlacFile.cs:214-252) and each symbol
@@ -78,49 +85,55 @@ struct State {
   bool bad;
 };
 
-// What one sample emits: the value symbol, the zero-run symbol, and
-// whether each is live (widths of a symbol that is not live are 0).
-struct Step {
-  Sym sv, sz;
+// What state_step hands to symbol_step for one sample: the value's
+// code (raw, k), the zero run's k (kz), and whether each symbol is live
+// (the widths of a symbol that is not live are 0).
+struct StepOut {
+  int32_t raw, k, kz;
   bool emit_v, emit_z;
 };
 
-// Sample i of a lane: both symbols, then the state update.  Symbols are
-// computed for every i (past n too, where they are not live), as the
-// plain version computes them over the whole plane.
-__device__ __forceinline__ Step step(State& st, const Params& p, int i,
-                                     int32_t err, int32_t zr) {
+// Sample i of a lane: the state machine's serial part.  It runs for
+// every i (past n too, where nothing is live and the state holds), as
+// the plain version runs over the whole plane.
+__device__ __forceinline__ StepOut state_step(State& st, const Params& p, int i,
+                                              int32_t err, int32_t zr) {
   const bool in_skip = st.skip > 0;
   const bool active = i < p.n && !in_skip;
 
   const int32_t dv = err > 0 ? wmul(2, err)
                              : (err < 0 ? wsub(wmul(-2, err), 1) : 0);
-  const int32_t raw = wsub(dv, st.sgnmod);
-  st.bad = st.bad || (active && raw < 0);
+  StepOut out;
+  out.raw = wsub(dv, st.sgnmod);
+  st.bad = st.bad | (active & (out.raw < 0));
   const int32_t ik = 31 - p.kmod - clz40(wadd(st.h >> 9, 3));
-  const int32_t k = ik < 0 ? ik + p.kmod : p.kmod;
-  Step out;
-  out.sv = emit_sym(raw, p.rss, k, -1);
+  out.k = ik < 0 ? ik + p.kmod : p.kmod;
 
   const int32_t h2 = dv > 0xFFFF
                          ? 0xFFFF
                          : wsub(wadd(st.h, wmul(dv, p.mult)),
                                 wmul(st.h, p.mult) >> 9);
   const bool zcond = h2 < 128 && i + 1 < p.n;
-  int32_t kz = clz40(h2) + (wadd(h2, 16) >> 6) - 24;
-  kz = kz < 31 ? kz : 31;
-  out.sz = emit_sym(zr, 16, kz, p.kmask);
+  const int32_t kz = clz40(h2) + (wadd(h2, 16) >> 6) - 24;
+  out.kz = kz < 31 ? kz : 31;
   out.emit_v = active;
   out.emit_z = active && zcond;
 
-  if (active) {
-    st.h = zcond ? 0 : h2;
-    st.sgnmod = zcond ? 1 : 0;
-    st.skip = zcond ? zr : 0;
-  } else if (in_skip && i < p.n) {
-    st.skip -= 1;
-  }
+  // Selects, not branches: a branch here would end the basic block, and
+  // the compiler could not interleave consecutive samples' work.
+  const int32_t skip_idle = in_skip && i < p.n ? st.skip - 1 : st.skip;
+  st.h = active ? (zcond ? 0 : h2) : st.h;
+  st.sgnmod = active ? (zcond ? 1 : 0) : st.sgnmod;
+  st.skip = active ? (zcond ? zr : 0) : skip_idle;
   return out;
+}
+
+// The sample's two symbols: the value (raw under k) and the zero run
+// (zr under kz and the lane's mask).  Computed whether live or not.
+__device__ __forceinline__ void symbol_step(const StepOut& o, int32_t zr,
+                                            const Params& p, Sym& sv, Sym& sz) {
+  sv = emit_sym(o.raw, p.rss, o.k, -1);
+  sz = emit_sym(zr, 16, o.kz, p.kmask);
 }
 
 }  // namespace alac_rice

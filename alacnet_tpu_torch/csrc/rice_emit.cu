@@ -7,7 +7,8 @@
 // ops/encode.rice_symbols (alacnet_tpu_torch/ops/cuda/rice_emit.py), and
 // its output feeds the native symbol-plane packer
 // (native.pack_symbol_frames_native).  The automaton is the one
-// enc_rice.cu runs (enc_rice_common.cuh): only the output differs.
+// enc_rice.cu runs (enc_rice_common.cuh): this kernel calls its state
+// step and then its symbol step in one thread; only the output differs.
 //
 // What bounds it on the H100: the history, sign-modifier and skip state
 // make each lane a serial recurrence, so at an encode chunk's 2048 lanes
@@ -66,14 +67,17 @@ __global__ void __launch_bounds__(kThreads) rice_emit_kernel(
 
   for (int i = 0; i < S; ++i) {
     const size_t at = (size_t)i * B + b;
-    const Step e = step(st, p, i, errs_sb[at], zr_sb[at]);
+    const int32_t zr = zr_sb[at];
+    const StepOut e = state_step(st, p, i, errs_sb[at], zr);
+    Sym sv, sz;
+    symbol_step(e, zr, p, sv, sz);
     // int16 and int8 planes take the low bits, as torch's .to() does.
-    v16_sb[at] = lo16(e.sv.v0) | (lo16(e.sz.v0) << 16);
-    v32_sb[at] = make_int2(e.sv.v1, e.sz.v1);
-    wid_sb[at] = byte_of(e.emit_v ? e.sv.w0 : 0, 0) |
-                 byte_of(e.emit_v ? e.sv.w1 : 0, 1) |
-                 byte_of(e.emit_z ? e.sz.w0 : 0, 2) |
-                 byte_of(e.emit_z ? e.sz.w1 : 0, 3);
+    v16_sb[at] = lo16(sv.v0) | (lo16(sz.v0) << 16);
+    v32_sb[at] = make_int2(sv.v1, sz.v1);
+    wid_sb[at] = byte_of(e.emit_v ? sv.w0 : 0, 0) |
+                 byte_of(e.emit_v ? sv.w1 : 0, 1) |
+                 byte_of(e.emit_z ? sz.w0 : 0, 2) |
+                 byte_of(e.emit_z ? sz.w1 : 0, 3);
   }
   bad_out[b] = st.bad;
 }

@@ -57,7 +57,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ring_sync.cuh"
+
 namespace {
+
+using namespace alac_ring;
 
 constexpr int kLanes = 32;          // lanes per block: one per thread of each warp
 constexpr int kThreads = 2 * kLanes;
@@ -78,27 +82,6 @@ struct Smem {
 // Named barriers 1..2*kSlots (0 is __syncthreads'), 64 threads each.
 __device__ __forceinline__ int bar_full(int s) { return 1 + s; }
 __device__ __forceinline__ int bar_empty(int s) { return 1 + kSlots + s; }
-__device__ __forceinline__ void bar_sync(int id) {
-  __syncwarp();
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id) {
-  __syncwarp();
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t* smem, const uint32_t* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ int32_t clz40(uint32_t x) {
   return x == 0u ? 40 : __clz(x);
@@ -300,7 +283,7 @@ __device__ __forceinline__ void entropy_warp(const Args& a, Smem& sm, int lane,
 
   for (int c = 0; c < nslots; ++c) {
     const int s = c % kSlots;
-    if (c >= kSlots) bar_sync(bar_empty(s));
+    if (c >= kSlots) bar_sync(bar_empty(s), kThreads);
     const int i0 = c * kSlotSamples;
     const int i1 = min(i0 + kSlotSamples, a.S);
     for (int i = i0; i < i1; ++i) {
@@ -339,7 +322,7 @@ __device__ __forceinline__ void entropy_warp(const Args& a, Smem& sm, int lane,
       bitpos = act ? wadd(bitpos, consumed + bcons) : bitpos;
       sm.res[s][i - i0][lane] = err;
     }
-    bar_arrive(bar_full(s));
+    bar_arrive(bar_full(s), kThreads);
   }
   cp_async_wait<0>();  // no copy may land in shared memory after exit
   if (!live) return;
@@ -386,7 +369,7 @@ __device__ __forceinline__ void lpc_warp(const Args& a, Smem& sm, int lane,
 
   for (int c = 0; c < nslots; ++c) {
     const int s = c % kSlots;
-    bar_sync(bar_full(s));
+    bar_sync(bar_full(s), kThreads);
     const int i0 = c * kSlotSamples;
     const int i1 = min(i0 + kSlotSamples, a.S);
     int32_t err_next = sm.res[s][0][lane];
@@ -444,7 +427,7 @@ __device__ __forceinline__ void lpc_warp(const Args& a, Smem& sm, int lane,
       if (on) prev = out;
       if (live) a.out_sb[(size_t)i * a.B + b] = on ? out : 0;
     }
-    if (c + kSlots < nslots) bar_arrive(bar_empty(s));
+    if (c + kSlots < nslots) bar_arrive(bar_empty(s), kThreads);
   }
 }
 

@@ -65,7 +65,7 @@ _SIGNATURES = {
     "alac_pack_rows": [_P, _I, _P, _P, _I, _I, _I, _P, _P],
     "alac_rice_lpc": [_P, _I, _I] + [_P] * 10 + [_I, _I, _I, _P, _P, _P],
     "alac_bulk_bits": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P],
-    "alac_enc_pred": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "alac_enc_pred": [_P, _I, _I] + [_P] * 5 + [_I, _I, _P, _P],
     "alac_enc_rice": [_P, _P, _I, _I] + [_P] * 6 + [_P] * 6 + [_P],
     "alac_rice_emit": [_P, _P, _I, _I] + [_P] * 6 + [_P] * 4 + [_P],
 }

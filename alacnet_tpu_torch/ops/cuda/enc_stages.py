@@ -13,13 +13,18 @@ The counterpart of ``alacnet_tpu/ops/pallas/enc_stages.py``:
 * :func:`encode_stages_fused` — runs the stages: predictor kernel,
   the zero-run reverse cummin in torch, Rice kernel.
 
-Both kernels run one thread per lane over the samples and read and write
-sample-major (S, B) planes, so the 32 lanes of a warp touch 128
-contiguous bytes per sample.  The wrappers take and return (B, S)
-tensors: a (B, S) input is transposed to (S, B) storage (a no-op when
-it already is the transposed view of such storage, as the predictor's
-output is), and outputs are the (B, S) views of the kernels' (S, B)
-buffers.  They take any B and S: no lane or sample padding.
+Both kernels give a block 16 lanes and split each lane's
+work across warps that hand tiles of samples over through shared
+memory: in ``enc_pred`` a producer warp stages the signal and stores
+the residuals while a predictor warp runs the chain, compiled per order
+bucket (``rice_lpc.ORDER_BUCKETS``); in ``enc_rice`` a state warp runs
+the automaton's serial part and emit warps the symbols and the merge
+(see the sources).  They read and write sample-major (S, B) planes.
+The wrappers take and return (B, S) tensors: a (B, S) input is
+transposed to (S, B) storage (a no-op when it already is the transposed
+view of such storage, as the predictor's output is), and outputs are the
+(B, S) views of the kernels' (S, B) buffers.  They take any B and S: no
+lane or sample padding.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from ..encode import (
 )
 from ..lpc import MAX_ORDER, LpcParams
 from . import _lib
+from .rice_lpc import order_bucket
 
 
 def _sample_major(name: str, x: torch.Tensor, B: int, S: int) -> torch.Tensor:
@@ -58,7 +64,7 @@ def predictor_errors_fused(
 
     ``max_order`` bounds the FIR and the adaptive walk, as the JAX
     kernel's static bound does (pass at least every lane's order below
-    31); the CUDA kernel is instantiated for each bound 0..31.
+    31), and picks the CUDA kernel's order bucket.
     """
     if not _lib.use_kernel(sig, kernel):
         return predictor_errors(sig, n, lp, num_samples, max_order=max_order)
@@ -78,7 +84,7 @@ def predictor_errors_fused(
         _lib.launch(
             "alac_enc_pred", dev, sig_sb.data_ptr(), B, S,
             *(t.data_ptr() for t in params), lp.rc.data_ptr(), max_order,
-            errs_sb.data_ptr(),
+            order_bucket(max_order), errs_sb.data_ptr(),
         )
     return errs_sb.t()
 

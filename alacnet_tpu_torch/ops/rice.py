@@ -87,6 +87,57 @@ def _decode_event(pairs, sh, off, rss, k, mult_mask):
     return value.to(I32), consumed.to(I32)
 
 
+class RiceState(NamedTuple):
+    """Per-lane entropy state between samples (all (B,) int32)."""
+
+    pos: torch.Tensor  # bit cursor
+    hist: torch.Tensor  # adaptive history
+    signmod: torch.Tensor  # sign modifier after a zero run
+    zrun: torch.Tensor  # zero samples still to emit
+
+
+def rice_step(words, i: int, n, params: RiceParams, st: RiceState):
+    """Sample ``i`` of every lane: (its residual (B,) int32, the state
+    after it).  A lane past its ``n`` keeps its state and emits 0."""
+    rss, kmod, mult, kmask = params.rss, params.kmod, params.mult, params.kmask
+    pos, hist, signmod, zrun = st
+    active = i < n
+    in_zero = zrun > 0
+
+    pairs = _window_pairs(words, pos)
+    sh = pos & 31
+    k = torch.minimum(31 - clz32((hist >> 9) + 3), kmod)
+    raw, consumed = _decode_event(pairs, sh, 0, rss, k, -1)
+    dv = raw + signmod
+    almost = trunc_div2_plus1(dv)
+    out_val = torch.where((dv & 1) != 0, -almost, almost)
+    hist2 = torch.where(
+        dv > 0xFFFF, 0xFFFF, hist + dv * mult - ((hist * mult) >> 9)
+    )
+    do = active & ~in_zero
+    zcond = (hist2 < 128) & (i + 1 < n) & do
+    if bool(zcond.any()):
+        # ---- zero-run block (AlacFile.cs:231-249) ----
+        kz = clz32(hist2) + trunc_div_const(hist2 + 16, 64) - 24
+        bsize, bconsumed = _decode_event(pairs, sh, consumed, 16, kz, kmask)
+        consumed = consumed + torch.where(zcond, bconsumed, 0)
+        # A where over two Python scalars would give int64 and
+        # promote signmod, then dv and hist, past 32 bits.
+        new_signmod = (zcond & (bsize <= 0xFFFF)).to(I32)
+        new_hist = torch.where(zcond, 0, hist2)
+        new_zrun = torch.where(zcond, bsize, 0)
+    else:
+        new_signmod, new_hist, new_zrun = 0, hist2, 0
+
+    out = torch.where(do, out_val, 0)
+    return out, RiceState(
+        pos=torch.where(do, pos + consumed, pos),
+        hist=torch.where(do, new_hist, hist),
+        signmod=torch.where(do, new_signmod, signmod),
+        zrun=torch.where(do, new_zrun, torch.where(active & in_zero, zrun - 1, zrun)),
+    )
+
+
 def rice_decode(words, start_bitpos, n, params: RiceParams, num_samples: int):
     """Decode ``num_samples`` residuals per lane.
 
@@ -98,47 +149,13 @@ def rice_decode(words, start_bitpos, n, params: RiceParams, num_samples: int):
     """
     B = words.shape[0]
     dev = words.device
-    rss, kmod, mult, kmask = (
-        params.rss, params.kmod, params.mult, params.kmask,
-    )
-    pos = start_bitpos.to(I32)
-    hist = params.init_history.to(I32)
-    signmod = torch.zeros(B, dtype=I32, device=dev)
-    zrun = torch.zeros(B, dtype=I32, device=dev)
+    # Every piece of lane state stays int32: a product such as hist *
+    # mult must wrap at 32 bits, as the JAX scan's does.
+    params = RiceParams(*(p.to(I32) for p in params))
+    zeros = torch.zeros(B, dtype=I32, device=dev)
+    st = RiceState(start_bitpos.to(I32), params.init_history, zeros, zeros)
     outs = torch.zeros((B, num_samples), dtype=I32, device=dev)
     steps = min(num_samples, max(0, int(n.max())) if B else 0)
     for i in range(steps):
-        active = i < n
-        in_zero = zrun > 0
-
-        pairs = _window_pairs(words, pos)
-        sh = pos & 31
-        k = torch.minimum(31 - clz32((hist >> 9) + 3), kmod)
-        raw, consumed = _decode_event(pairs, sh, 0, rss, k, -1)
-        dv = raw + signmod
-        almost = trunc_div2_plus1(dv)
-        out_val = torch.where((dv & 1) != 0, -almost, almost)
-        hist2 = torch.where(
-            dv > 0xFFFF, 0xFFFF, hist + dv * mult - ((hist * mult) >> 9)
-        )
-        do = active & ~in_zero
-        zcond = (hist2 < 128) & (i + 1 < n) & do
-        if bool(zcond.any()):
-            # ---- zero-run block (AlacFile.cs:231-249) ----
-            kz = clz32(hist2) + trunc_div_const(hist2 + 16, 64) - 24
-            bsize, bconsumed = _decode_event(pairs, sh, consumed, 16, kz, kmask)
-            consumed = consumed + torch.where(zcond, bconsumed, 0)
-            new_signmod = torch.where(zcond, torch.where(bsize > 0xFFFF, 0, 1), 0)
-            new_hist = torch.where(zcond, 0, hist2)
-            new_zrun = torch.where(zcond, bsize, 0)
-        else:
-            new_signmod, new_hist, new_zrun = 0, hist2, 0
-
-        outs[:, i] = torch.where(do, out_val, 0)
-        pos = torch.where(do, pos + consumed, pos)
-        hist = torch.where(do, new_hist, hist)
-        signmod = torch.where(do, new_signmod, signmod)
-        zrun = torch.where(
-            do, new_zrun, torch.where(active & in_zero, zrun - 1, zrun)
-        )
-    return outs, pos
+        outs[:, i], st = rice_step(words, i, n, params, st)
+    return outs, st.pos

@@ -1,28 +1,34 @@
 #!/usr/bin/env python3
-"""A/B of the decode path's kernel wrappers against another tree's, in
-one process on one CUDA card.
+"""A/B of the port's kernel wrappers against another tree's, in one
+process on one CUDA card.
 
-    python3 scripts/kernel_ab.py OTHER [--rounds N]
+    python3 scripts/kernel_ab.py OTHER [--rounds N] [--sets NAME ...]
 
 OTHER is the root of another checkout of this repo, for example the
-parent commit unpacked with ``git archive`` into the git-ignored
-``_checkout/``.  Its ``alacnet_tpu_torch`` is imported under another
-name beside this tree's, so both trees' real wrappers (``pack_rows``,
-``fused_rice_lpc``; each builds its own tree's kernels) run on the same
-inputs: the main paths' calls, recorded on the card as ``chip_smoke.py``
-records them.
+parent commit unpacked into the git-ignored ``_checkout/``::
+
+    mkdir -p _checkout/parent && git archive HEAD~1 | tar -x -C _checkout/parent
+    python3 scripts/kernel_ab.py _checkout/parent
+
+Its ``alacnet_tpu_torch`` is imported under another name beside
+this tree's, so both trees' real wrappers (each builds its own tree's
+kernels) run on the same inputs: the main paths' calls, recorded on the
+card as ``chip_smoke.py`` records them.
 
 - ``pack_rows``, ``rice_lpc``: every call of one pooled
   ``decode_streams`` of the smoke corpus, each file 96 times;
 - ``rice_lpc_session``: every ``rice_lpc`` call of one
   ``AlacContext.read_all`` of ``chip_smoke.py``'s long stream (a pass
-  per 64-frame window).
+  per 64-frame window);
+- ``enc_pred``, ``enc_rice``: every ``predictor_errors_fused`` and
+  ``rice_merge_fused`` call of one pooled ``encode_files(device="cuda")``
+  of the decoded smoke corpus (``chip_smoke.py`` phase 4's recording:
+  12 calls of up to 2048 lanes).
 
-Every output of the other tree must equal this tree's, bit for bit.
-Per round, each wrapper (and for ``pack_rows`` ``torch.take`` of the
-same rows) runs every call of a set, in turns, the order reversed every
-other round.  Each figure is the median over ``--rounds`` rounds of a
-sum over the set's calls of:
+Every output of the other tree must equal this tree's, bit for bit.  Per round, each wrapper (and for ``pack_rows``
+``torch.take`` of the same rows) runs every call of a set, in turns, the
+order reversed every other round.  Each figure is the median over
+``--rounds`` rounds of a sum over the set's calls of:
 
 - ``ms``: 5 calls from the host, CUDA events around them (the wrapper's
   host work counts where it outlasts the kernel);
@@ -40,6 +46,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import importlib.util
+import io
 import json
 import pathlib
 import statistics
@@ -62,8 +69,10 @@ def load_wrappers(root: pathlib.Path) -> dict:
     mod = importlib.util.module_from_spec(spec)
     sys.modules[OTHER] = mod
     spec.loader.exec_module(mod)
+    enc = importlib.import_module(f"{OTHER}.ops.cuda.enc_stages")
     return {"pack_rows": importlib.import_module(f"{OTHER}.ops.cuda.pack_rows").pack_rows,
-            "rice_lpc": importlib.import_module(f"{OTHER}.ops.cuda.rice_lpc").fused_rice_lpc}
+            "rice_lpc": importlib.import_module(f"{OTHER}.ops.cuda.rice_lpc").fused_rice_lpc,
+            "enc_pred": enc.predictor_errors_fused, "enc_rice": enc.rice_merge_fused}
 
 
 def timed(run, reps: int = 5) -> tuple[float, float]:
@@ -92,6 +101,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", type=pathlib.Path, help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=7)
+    ap.add_argument("--sets", nargs="*", default=None,
+                    help="the sets to run (default: all)")
     opt = ap.parse_args()
 
     import torch
@@ -103,15 +114,25 @@ def main() -> int:
     import chip_smoke as cs
 
     smi = cs.nvidia_smi()
-    port = {"pack_rows": cs.decode_fns()["pack_rows"], "rice_lpc": cs.decode_fns()["rice_lpc"]}
+    port = {**cs.decode_fns(), **cs.enc_fns()}
     other = load_wrappers(opt.other.resolve())
+    wanted = set(opt.sets or ("pack_rows", "rice_lpc", "rice_lpc_session", "enc_pred", "enc_rice"))
 
     names, data, _ = cs.load_corpus()
-    pooled, _ = cs.record_calls(names, data, alacnet_tpu_torch.DecodeConfig(device="cuda"))
-    music = alacnet_tpu_torch.decode_file(cs.CORPUS / "music.m4a", device="cuda")
-    sets = {"pack_rows": ("pack_rows", pooled["pack_rows"]),
-            "rice_lpc": ("rice_lpc", pooled["rice_lpc"]),
-            "rice_lpc_session": ("rice_lpc", cs.record_session_calls(cs.long_stream(music)[1]))}
+    sets = {}
+    if wanted & {"pack_rows", "rice_lpc"}:
+        pooled, _ = cs.record_calls(names, data, alacnet_tpu_torch.DecodeConfig(device="cuda"))
+        sets.update({"pack_rows": ("pack_rows", pooled["pack_rows"]),
+                     "rice_lpc": ("rice_lpc", pooled["rice_lpc"])})
+    if "rice_lpc_session" in wanted:
+        music = alacnet_tpu_torch.decode_file(cs.CORPUS / "music.m4a", device="cuda")
+        sets["rice_lpc_session"] = ("rice_lpc", cs.record_session_calls(cs.long_stream(music)[1]))
+    if wanted & {"enc_pred", "enc_rice"}:
+        decoded = dict(zip(names, alacnet_tpu_torch.decode_streams(
+            [io.BytesIO(data[n]) for n in names], device="cuda")))
+        enc_calls, _, _ = cs.record_enc_calls(decoded, names)
+        sets.update({k: (k, enc_calls[k]) for k in ("enc_pred", "enc_rice")})
+    sets = {k: v for k, v in sets.items() if k in wanted}
 
     results = []
     for set_name, (kernel, calls) in sets.items():
@@ -133,7 +154,7 @@ def main() -> int:
                 if kernel == "pack_rows":
                     rounds[name]["device_ms"].append(sum(t() for t in graphs[name]))
         res = {"set": set_name, "calls": len(calls),
-               "lanes": sorted({a[0].shape[0] if kernel == "rice_lpc" else a[1].shape[0]
+               "lanes": sorted({a[1].shape[0] if kernel == "pack_rows" else a[0].shape[0]
                                 for a, _ in calls}),
                "exact": exact, "card": smi}
         for key in ("ms", "host_us", "device_ms"):

@@ -258,8 +258,9 @@ def random_lpc_inputs(seed, B=40, W=2048, S=400):
     quarter of the rows mostly one bits (long unary prefixes: escapes),
     a quarter mostly zero bits (short codes, zero runs); parameters in
     the ranges a stream header gives (kmask = 2**kmod - 1, coefficients
-    zero past the order) with the Rice multiplier below 64.  Rows are
-    wide enough that no lane's cursor nears their end."""
+    zero past the order, the Rice multiplier ricemod * (historymult / 4)
+    up to 7 * 63).  Rows are wide enough that no lane's cursor nears
+    their end."""
     rng = np.random.default_rng(seed)
     words = rng.integers(-(1 << 31), 1 << 31, (B, W), dtype=np.int64).astype(np.int32)
     words[::4] |= rng.integers(0, 1 << 30, (len(range(0, B, 4)), W)).astype(np.int32) << 1
@@ -268,7 +269,7 @@ def random_lpc_inputs(seed, B=40, W=2048, S=400):
     kmod = rng.integers(0, 16, B)
     cols = (rng.integers(0, 64, B), rng.integers(0, S + 1, B),
             rng.choice([16, 17, 20, 21, 24, 25], B), kmod, rng.integers(0, 1 << 16, B),
-            rng.integers(0, 64, B), (1 << kmod) - 1, order, rng.integers(0, 16, B))
+            rng.integers(0, 7 * 63 + 1, B), (1 << kmod) - 1, order, rng.integers(0, 16, B))
     rc = np.where(np.arange(32)[None, :] <= order[:, None],
                   rng.integers(-3000, 3000, (B, 32)), 0)
     return tuple(np.ascontiguousarray(a, np.int32) for a in (words, *cols, rc)), S
@@ -515,6 +516,106 @@ def test_enc_kernels_match_plain(cuda, B, S, order):
         assert g.dtype == w.dtype and torch.equal(g, w), name
     assert _lib.LAUNCHES["enc_pred"] > before.get("enc_pred", 0)
     assert _lib.LAUNCHES["enc_rice"] > before.get("enc_rice", 0)
+
+
+def _check_enc(sig, n, lp, rp, S, max_order, errs=None):
+    """enc_pred, then enc_rice on its residuals (or on ``errs``), each
+    against its plain version bit for bit; returns the plain outputs."""
+    from alacnet_tpu_torch.ops.cuda.enc_stages import (
+        predictor_errors_fused, rice_merge_fused,
+    )
+    from alacnet_tpu_torch.ops.encode import zero_run_lengths
+
+    got = predictor_errors_fused(sig, n, lp, S, max_order=max_order, kernel="cuda")
+    torch.cuda.synchronize()
+    want = predictor_errors_fused(sig, n, lp, S, max_order=max_order, kernel="torch")
+    assert torch.equal(got, want)
+    errs = want if errs is None else errs
+    zr = zero_run_lengths(errs, n, S)
+    got = rice_merge_fused(errs, zr, n, rp, S, kernel="cuda")
+    torch.cuda.synchronize()
+    ref = rice_merge_fused(errs, zr, n, rp, S, kernel="torch")
+    for name, g, w in zip(("c0", "c1", "c2", "ws", "bits", "bad"), got, ref):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    return want, zr, ref
+
+
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 31, 32, 33, 95, 96, 97])
+def test_enc_kernels_tile_edges(cuda, S):
+    """S below one tile, at a tile's edge and one either side (enc_pred's
+    tiles are 32 samples, enc_rice's 16; its ring holds 6 tiles)."""
+    sig, n, lp, rp = _enc_inputs(33, S, 6, cuda, seed=S)
+    _check_enc(sig, n, lp, rp, S, 6)
+
+
+@pytest.mark.parametrize("B", [1, 15, 16, 17, 31, 33, 2048, 2049])
+def test_enc_kernels_lane_counts(cuda, B):
+    """One lane, a block's edges (16 lanes), a chunk's 2048 lanes and one
+    more; lanes whose residuals desync the emitter set ``bad``."""
+    sig, n, lp, rp = _enc_inputs(B, 100, 8, cuda)
+    _, _, ref = _check_enc(sig, n, lp, rp, 100, 8)
+    if B >= 33:  # lanes 10, 21 and 32 carry unconstrained int32 values
+        assert bool(ref[5].any())
+
+
+@pytest.mark.parametrize("orders", [(0, 1, 4), (5, 6), (7, 8), (9, 12), (13, 16),
+                                    (17, 30)], ids=lambda o: f"{o[0]}-{o[-1]}")
+def test_enc_pred_order_buckets(cuda, orders):
+    """Each order bucket with mixed orders (order-31 and order-0 lanes
+    among them), at max_order and at one above it."""
+    from alacnet_tpu_torch.ops.lpc import LpcParams, reverse_coefs
+
+    B, S = 48, 150
+    sig, n, lp, rp = _enc_inputs(B, S, 6, cuda, seed=orders[-1])
+    rng = np.random.default_rng(orders[0])
+    order = rng.integers(orders[0], orders[-1] + 1, B).astype(np.int32)
+    order[::7], order[3::11] = 31, 0
+    coefs = rng.integers(-2500, 2500, (B, 31)).astype(np.int32)
+    coefs[np.arange(31)[None, :] >= order[:, None]] = 0
+    T = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    lp = LpcParams(T(order), lp.quant, T(reverse_coefs(coefs, order)), lp.rss)
+    mo = int(order[order != 31].max())
+    for max_order in sorted({mo, min(mo + 1, 31)}):
+        _check_enc(sig, n, lp, rp, S, max_order)
+
+
+def test_enc_kernels_ragged_and_empty_lanes(cuda):
+    """n = 0 lanes, ragged n, a whole block of n = 0 (no tile runs) and
+    a block whose longest lane ends mid-tile (the zero tail)."""
+    B, S = 80, 200
+    sig, n, lp, rp = _enc_inputs(B, S, 6, cuda)
+    rng = np.random.default_rng(1)
+    nn = rng.integers(0, S + 1, B).astype(np.int32)
+    nn[:32] = 0
+    nn[32:64] = rng.integers(0, 70, 32)
+    nn[40] = 69
+    _check_enc(sig, torch.from_numpy(nn).to(cuda), lp, rp, S, 6)
+
+
+def test_enc_rice_zero_runs_cross_tiles_and_ring(cuda):
+    """Silent lanes and lanes of spikes 250 samples apart: zero runs that
+    cross tiles and ring slots, and runs longer than the whole ring
+    (6 tiles of 16 samples); rice_emit holds on the same inputs."""
+    from alacnet_tpu_torch.ops.encode import rice_symbols
+
+    B, S = 36, 700
+    sig, n, lp, rp = _enc_inputs(B, S, 6, cuda, seed=9)
+    sig[:12] = 0
+    sig[12:24] = 0
+    sig[12:24, ::250] = 3
+    errs, zr, _ = _check_enc(sig, n, lp, rp, S, 6)
+    assert int(zr.max()) > 6 * 16
+    _check_rice_emit(errs, zr, n, rp, S)
+    assert rice_symbols(errs, zr, n, rp, S)[2][:, :, 2].any()  # zero-run symbols
+
+
+@pytest.mark.parametrize("case", TROUBLE_CASES)
+def test_enc_kernels_trouble_points_in_tiles(cuda, case):
+    d = trouble_inputs(case)
+    lp, rp = trouble_params(d, cuda)
+    sig, n = (torch.from_numpy(d[k]).to(cuda) for k in ("sig", "n"))
+    errs = None if d["errs"] is None else torch.from_numpy(d["errs"]).to(cuda)
+    _check_enc(sig, n, lp, rp, sig.shape[1], d["max_order"], errs)
 
 
 def test_encode_files_on_card_matches_expected(cuda):

@@ -140,3 +140,49 @@ def test_plain_matches_jax_scan_random_rows(seed):
     t_out, t_end = fused_rice_lpc(*map(torch.from_numpy, arrays), S)
     np.testing.assert_array_equal(t_out.numpy(), np.asarray(j_out))
     np.testing.assert_array_equal(t_end.numpy(), np.asarray(j_end))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_matches_jax_scan_large_rice_multipliers(seed):
+    """Rice multipliers of 64-255: hist * mult passes 2**31 and must wrap
+    at 32 bits in the plain version as in the JAX scan, samples and end
+    bits exactly (seed 2 is the input that first showed the port's
+    int64 promotion)."""
+    from .test_torch_cuda import random_lpc_inputs
+
+    arrays, S = random_lpc_inputs(seed)
+    arrays = list(arrays)
+    arrays[6] = np.random.default_rng(1000 + seed).integers(64, 256, 40).astype(np.int32)
+    j_out, j_end = _jax_channel(*map(jnp.asarray, arrays), S=S)
+    t_out, t_end = fused_rice_lpc(*map(torch.from_numpy, arrays), S)
+    np.testing.assert_array_equal(t_out.numpy(), np.asarray(j_out))
+    np.testing.assert_array_equal(t_end.numpy(), np.asarray(j_end))
+
+
+def test_rice_decode_state_stays_int32(monkeypatch):
+    """Every sample's residuals and every piece of lane state (bit
+    cursor, history, sign modifier, zero run) stay int32 through a
+    decode that starts zero runs under large multipliers."""
+    from alacnet_tpu_torch.ops import rice
+
+    from .test_torch_cuda import random_lpc_inputs
+
+    arrays, S = random_lpc_inputs(2)
+    arrays = [torch.from_numpy(a) for a in arrays]
+    arrays[6] = torch.from_numpy(np.random.default_rng(1002).integers(64, 256, 40)
+                                 .astype(np.int32))
+    seen = []
+    step = rice.rice_step
+
+    def checked(*args):
+        out, st = step(*args)
+        seen.append((out.dtype, *(t.dtype for t in st)))
+        return out, st
+
+    monkeypatch.setattr(rice, "rice_step", checked)
+    words, start, n, rss, kmod, ihist, mult, kmask = arrays[:8]
+    out, end = rice.rice_decode(words, start, n,
+                                rice.RiceParams(rss, kmod, ihist, mult, kmask), S)
+    assert len(seen) == min(S, int(n.max()))
+    assert set(seen) == {(torch.int32,) * 5}
+    assert out.dtype == torch.int32 and end.dtype == torch.int32
