@@ -6,9 +6,9 @@
 //    sign-modifier / skip update);
 //  - symbol_step: the two symbols of a sample (value, zero run) from
 //    what state_step handed over; no state.
-// rice_emit.cu (fields written unmerged) runs both in one thread, one
-// after the other; enc_rice.cu (fields merged into 96-bit chunks) runs
-// state_step in its state warp and symbol_step in its emit warps.
+// Both kernels, enc_rice.cu (fields merged into 96-bit chunks) and
+// rice_emit.cu (fields written unmerged), run state_step in the state
+// warp and symbol_step in the emit warps of rice_ring.cuh's skeleton.
 //
 // The step is ops/encode.rice_symbols' state machine (the decoder's
 // EntropyRiceDecode run forward, AlacFile.cs:214-252) and each symbol

@@ -1,5 +1,5 @@
 // Hand-off primitives of the kernels' shared-memory rings (enc_pred.cu,
-// enc_rice.cu, rice_lpc.cu): named barriers between warps of a block,
+// rice_ring.cuh, rice_lpc.cu): named barriers between warps of a block,
 // cp.async copies from device memory into shared memory, and tiles of
 // sample-major planes moved between the two.
 //
@@ -98,7 +98,7 @@ __device__ __forceinline__ void store_tile(T* __restrict__ plane, const T (*src)
     for (int q = t; q < ROWS * L; q += 32) {
       const int r = q / L, l = q % L;
       const int i = i0 + r, b = b0 + l;
-      if (i < S && b < B) plane[(size_t)i * B + b] = src ? src[r][l] : T(0);
+      if (i < S && b < B) plane[(size_t)i * B + b] = src ? src[r][l] : T{};
     }
   }
 }

@@ -64,7 +64,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "alac_pack_rows": [_P, _I, _P, _P, _I, _I, _I, _P, _P],
     "alac_rice_lpc": [_P, _I, _I] + [_P] * 10 + [_I, _I, _I, _P, _P, _P],
-    "alac_bulk_bits": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+    "alac_bulk_bits": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "alac_enc_pred": [_P, _I, _I] + [_P] * 5 + [_I, _I, _P, _P],
     "alac_enc_rice": [_P, _P, _I, _I] + [_P] * 6 + [_P] * 6 + [_P],
     "alac_rice_emit": [_P, _P, _I, _I] + [_P] * 6 + [_P] * 4 + [_P],
@@ -193,6 +193,11 @@ def launch(name: str, device: torch.device, *args) -> None:
 
 def check_i32(name: str, t: torch.Tensor, shape: tuple, device) -> None:
     """Validate a kernel argument: int32, contiguous, on ``device``."""
+    # One expression for the common case: the wrappers of the smallest
+    # kernels make several checks a call (microseconds each otherwise).
+    if (t.dtype == torch.int32 and t.device == device and t.shape == shape
+            and t.is_contiguous()):
+        return
     if t.dtype != torch.int32 or t.device != device:
         raise ValueError(f"{name}: expected int32 on {device}, got {t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):

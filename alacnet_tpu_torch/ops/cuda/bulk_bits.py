@@ -17,6 +17,9 @@ import torch
 from ..bitreader import gather_bits
 from . import _lib
 
+#: Samples of one lane that a block of the kernel extracts (``kSamples``).
+SAMPLES_PER_BLOCK = 1024
+
 
 def bulk_bits_plain(words, start, n, n1, n2, num_samples: int):
     """Plain torch version: one two-word gather per field."""
@@ -42,24 +45,25 @@ def bulk_bits(
 
     Returns (a (B, S) int32, b (B, S) int32, stalled (B,) bool); the
     CUDA kernel never stalls, so ``stalled`` is all False (kept for the
-    JAX interface).
+    JAX interface).  On the card the kernel writes all three (the planes
+    are the two halves of one allocation): one launch a call.
     """
     B, W = words.shape
-    stalled = torch.zeros((B,), dtype=torch.bool, device=words.device)
     if not _lib.use_kernel(words, kernel):
+        stalled = torch.zeros((B,), dtype=torch.bool, device=words.device)
         return (*bulk_bits_plain(words, start, n, n1, n2, num_samples), stalled)
     S = num_samples
-    if W <= 0 or B * max(S, 1) >= 1 << 31 or S > _lib.MAX_GRID_Y * 256:
+    if W <= 0 or B * max(S, 1) >= 1 << 31 or S > _lib.MAX_GRID_Y * SAMPLES_PER_BLOCK:
         raise ValueError(f"bulk_bits: bad shape B={B} W={W} S={S}")
     dev = words.device
     _lib.check_i32("words", words, (B, W), dev)
     for name, t in (("start", start), ("n", n), ("n1", n1), ("n2", n2)):
         _lib.check_i32(name, t, (B,), dev)
-    a = torch.empty((B, S), dtype=torch.int32, device=dev)
-    b = torch.empty((B, S), dtype=torch.int32, device=dev)
+    a, b = torch.empty((2, B, S), dtype=torch.int32, device=dev).unbind(0)
+    stalled = torch.empty((B,), dtype=torch.bool, device=dev)
     _lib.launch(
-        "alac_bulk_bits", words.device, words.data_ptr(), B, W, start.data_ptr(),
+        "alac_bulk_bits", dev, words.data_ptr(), B, W, start.data_ptr(),
         n.data_ptr(), n1.data_ptr(), n2.data_ptr(), S, a.data_ptr(),
-        b.data_ptr(),
+        b.data_ptr(), stalled.data_ptr(),
     )
     return a, b, stalled

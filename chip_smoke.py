@@ -20,7 +20,8 @@ on failure, each printing its seconds:
    (timed with CUDA events after a warm-up), and the first call of each
    group — then further calls while the kernel's plain total stays under
    ``PLAIN_BUDGET_S`` — through its plain torch version on the same card
-   tensors too, bit for bit;
+   tensors too, bit for bit; ``pack_rows`` and ``bulk_bits`` are timed on
+   the card alone too (CUDA-graph replays);
 3. e2e — ``alacnet_tpu_torch.decode_streams`` on the 8 smoke files
    (``tests/fixtures/torch_smoke``), each given 96 times as an
    in-memory stream (11,520 frames); every file's PCM sha256 must equal
@@ -90,7 +91,11 @@ PyTorch call computing the same function on the same inputs where one
 exists (``pack_rows``: ``torch.take`` of the rows, timed as ``ms``),
 else null; the ``kernel_check`` line also times the two in turns
 (``time_against_library``), and ``library_over_kernel`` is the ratio of
-their medians from the host.  Numbers
+their medians from the host.  ``DEVICE_TIMED`` kernels (``pack_rows``,
+``bulk_bits``) also get ``device_ms`` and ``device_bound_share`` (bound
+over card-alone time) in their ``kernel_check`` line, and ``bulk_bits``
+``interface_bytes`` and ``interface_bound_ms``: the bytes with the zeros
+its full (B, S) planes hold past each lane's n.  Numbers
 go on JSON lines; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Without CUDA, or outside a checkout, it exits non-zero and prints no
@@ -158,6 +163,9 @@ INT_OPS = {
 #: call computes the kernel's function (``pack_rows``: ``torch.take``),
 #: each timing 5 calls from the host and a CUDA graph of 5 calls.
 ALT_ROUNDS = 7
+#: Kernels whose calls are also timed on the card alone (``device_ms``):
+#: tens of microseconds of kernel, under the wrapper's host work.
+DEVICE_TIMED = ("pack_rows", "bulk_bits")
 #: Frames per window and per resumable chunk of phase 7's checks.
 API_WINDOW = 4
 RESUME_FRAMES = 5
@@ -338,6 +346,19 @@ def call_work(name: str, args, got) -> tuple[int, int]:
     return per_sample * live + per_lane * n.shape[0], ops["sample"] * live
 
 
+def interface_bytes(name: str, args, work_bytes: int) -> int:
+    """``call_work``'s bytes plus what the interface makes a call write
+    beyond them: ``bulk_bits`` returns full (B, S) planes, so every
+    sample past a lane's n is a zero to write."""
+    import torch
+
+    if name != "bulk_bits":
+        return work_bytes
+    _, _, n, _, _, S = args[:6]
+    dead = n.shape[0] * S - _isum(torch.clamp(n, 0, S))
+    return work_bytes + 8 * dead
+
+
 def library_call(name: str, args):
     """A zero-argument callable of one PyTorch call computing the same
     function on the same inputs (index tensors built here, outside the
@@ -385,30 +406,33 @@ def graph_replay_ms(fns, reps: int = 5):
     return timers
 
 
-def time_against_library(kernel, lib) -> dict:
+def time_against_library(kernel, lib, device: bool = False) -> dict:
     """One call's times.  ``ms``: the kernel's, the mean of 5 launches
     from the host (CUDA events around them).  Where a library call
-    computes the same function: ``library_ms``, its time measured the
-    same way; then both in turns, ``ALT_ROUNDS`` rounds of (kernel,
-    library), each timed from the host as ``ms`` and on the card alone
-    (``graph_replay_ms``: a few microseconds of kernel can hide under
-    tens of microseconds of the wrapper's host work); the medians of the
-    rounds are ``alt_ms``, ``alt_library_ms``, ``device_ms`` and
-    ``library_device_ms``."""
+    computes the same function, or ``device`` asks for the card-alone
+    time: ``ALT_ROUNDS`` rounds, each timing the kernel from the host as
+    ``ms`` and on the card alone (``graph_replay_ms``: a few
+    microseconds of kernel can hide under tens of microseconds of the
+    wrapper's host work), and the library call the same ways in turns
+    with it (``library_ms`` first, alone); the medians of the rounds are
+    ``alt_ms``, ``device_ms`` and, with a library call,
+    ``alt_library_ms`` and ``library_device_ms``."""
     import statistics
 
     out = {"ms": cuda_ms(kernel, 5)}
-    if lib is None:
+    if lib is None and not device:
         return out
-    lib()
-    out["library_ms"] = cuda_ms(lib, 5)
-    k_dev, l_dev = graph_replay_ms([kernel, lib])
-    runs = {k: [] for k in ("alt_ms", "alt_library_ms", "device_ms", "library_device_ms")}
+    fns = {"": kernel}
+    if lib is not None:
+        lib()
+        out["library_ms"] = cuda_ms(lib, 5)
+        fns["library_"] = lib
+    timers = dict(zip(fns, graph_replay_ms(list(fns.values()))))
+    runs = {}
     for _ in range(ALT_ROUNDS):
-        runs["alt_ms"].append(cuda_ms(kernel, 5))
-        runs["alt_library_ms"].append(cuda_ms(lib, 5))
-        runs["device_ms"].append(k_dev())
-        runs["library_device_ms"].append(l_dev())
+        for key, fn in fns.items():
+            runs.setdefault(f"alt_{key}ms", []).append(cuda_ms(fn, 5))
+            runs.setdefault(f"{key}device_ms", []).append(timers[key]())
     out.update({k: statistics.median(v) for k, v in runs.items()})
     return out
 
@@ -428,7 +452,7 @@ def compare_kernels(calls, fns, groups, budget_s) -> dict:
             raise RuntimeError(f"the main path made no {name} call")
         fn = fns[name]
         err, ms, ms_all, plain_ms, shapes, compared = 0, 0.0, 0.0, 0.0, [], []
-        nbytes = nops = 0
+        nbytes = nops = iface_bytes = 0
         bound_s = bytes_s = ops_s = 0.0
         lib_times = {}
         seen = set()
@@ -440,7 +464,8 @@ def compare_kernels(calls, fns, groups, budget_s) -> dict:
         for idx, (args, kw) in enumerate(recorded):
             got = fn(*args, **{**kw, "kernel": "cuda"})
             t = time_against_library(
-                lambda: fn(*args, **{**kw, "kernel": "cuda"}), library_call(name, args)
+                lambda: fn(*args, **{**kw, "kernel": "cuda"}), library_call(name, args),
+                device=name in DEVICE_TIMED,
             )
             k_ms = t.pop("ms")
             ms_all += k_ms
@@ -450,6 +475,7 @@ def compare_kernels(calls, fns, groups, budget_s) -> dict:
             shapes.append(list(got[0].shape))
             b, o = call_work(name, args, got)
             nbytes, nops = nbytes + b, nops + o
+            iface_bytes += interface_bytes(name, args, b)
             bytes_s, ops_s = bytes_s + b / HBM_BYTES_PER_S, ops_s + o / INT32_OPS_PER_S
             bound_s += max(b / HBM_BYTES_PER_S, o / INT32_OPS_PER_S)
             group = groups[name][idx]
@@ -481,13 +507,19 @@ def compare_kernels(calls, fns, groups, budget_s) -> dict:
             "library_ms": lib_times.get("library_ms"),
             "bound_share": bound_s * 1e3 / ms_all if ms_all else None,
         }
+        if iface_bytes != nbytes:
+            # what the interface makes the kernel write besides (the
+            # zeros of samples past n): the least time with them
+            results[name]["interface_bytes"] = iface_bytes
+            results[name]["interface_bound_ms"] = iface_bytes / HBM_BYTES_PER_S * 1e3
         if lib_times:
             # from the rounds in turns; a ratio > 1: the kernel is faster
             results[name].update(lib_times)
+            results[name]["device_bound_share"] = bound_s * 1e3 / lib_times["device_ms"]
+        if "alt_library_ms" in lib_times:
             results[name]["library_over_kernel"] = lib_times["alt_library_ms"] / lib_times["alt_ms"]
             results[name]["library_over_kernel_device"] = (
                 lib_times["library_device_ms"] / lib_times["device_ms"])
-            results[name]["device_bound_share"] = bound_s * 1e3 / lib_times["device_ms"]
         emit({"kernel_check": name, **results[name]})
     return results
 

@@ -15,8 +15,16 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from alacnet_tpu.ops import frame_decode as jfd  # noqa: E402
+from alacnet_tpu.ops.bitreader import gather_bits as jgather_bits  # noqa: E402
 from alacnet_tpu_torch.ops import frame_decode as tfd  # noqa: E402
 from alacnet_tpu_torch.ops.cuda.bulk_bits import bulk_bits  # noqa: E402
+
+from .test_torch_cuda import (  # noqa: E402
+    BULK_KINDS,
+    BULK_MALFORMED,
+    bulk_bits_case,
+    bulk_bits_clipped,
+)
 
 B, S = 48, 96
 
@@ -111,3 +119,46 @@ def test_bulk_bits_raw_use_matches_jax(seed):
         tfd._extend_raw(b, tm).numpy()[live & st], jb[live & st]
     )
     assert (b.numpy()[~st[:, 0]] == 0).all()  # n2 == 0: no second field
+
+
+def _jax_bulk_bits(words, start, n, n1, n2, S):
+    """JAX's plain reference of bulk_bits: its XLA gather formulation
+    (tests/test_pallas_kernel.py holds the Pallas kernel against it)."""
+    w = jnp.asarray(words.view(np.uint32))
+    j1 = jnp.asarray(n1)[:, None]
+    pos = jnp.asarray(start)[:, None] + (
+        jnp.arange(S, dtype=jnp.int32)[None, :] * jnp.asarray(n1 + n2)[:, None]
+    )
+    live = np.arange(S)[None, :] < n[:, None]
+    a = np.where(live, np.asarray(jgather_bits(w, pos, j1)), 0)
+    b = np.asarray(jgather_bits(w, pos + j1, jnp.asarray(np.maximum(n2, 1))[:, None]))
+    b = np.where(live & (n2 > 0)[:, None], b, 0)
+    return a.astype(np.uint32).view(np.int32), b.astype(np.uint32).view(np.int32)
+
+
+#: The card tests' edge cases where the plain version and the kernel
+#: agree (fields in the row; positions that wrap read the same words in
+#: both JAX references), minus the 4-byte-offset word table, which only
+#: the kernel sees.
+PLAIN_KINDS = tuple(k for k in BULK_KINDS if k not in ("clip", "misaligned"))
+
+
+@pytest.mark.parametrize("S", [1, 7, 33])
+@pytest.mark.parametrize("kind", PLAIN_KINDS)
+def test_bulk_bits_plain_edges_match_jax(kind, S):
+    """The plain bulk_bits at the card tests' edges (a 48-bit stride, one
+    field, n = 0 / n < 0 / n > S lanes, int32 wrap, S not a multiple of
+    the kernel's 4 samples a thread) against JAX's gather formulation;
+    where the fields stay in the row, the card tests' NumPy reference
+    (the kernel's per-word clip) equals both."""
+    words, start, n, n1, n2 = bulk_bits_case(kind, S)
+    T = torch.from_numpy
+    a, b, stalled = bulk_bits(T(words), T(start), T(n), T(n1), T(n2), S)
+    assert not stalled.any()
+    want_a, want_b = _jax_bulk_bits(words, start, n, n1, n2, S)
+    np.testing.assert_array_equal(a.numpy(), want_a)
+    np.testing.assert_array_equal(b.numpy(), want_b)
+    if kind not in BULK_MALFORMED:
+        ref_a, ref_b = bulk_bits_clipped(words, start, n, n1, n2, S)
+        np.testing.assert_array_equal(ref_a, want_a)
+        np.testing.assert_array_equal(ref_b, want_b)

@@ -723,6 +723,152 @@ def test_rice_emit_trouble_points(cuda, case):
     _check_rice_emit(errs, zero_run_lengths(errs, n, S), n, rp, S)
 
 
+def _rice_emit_inputs(B, S, dev, seed=0):
+    """Rice-stage inputs from _enc_inputs' lanes: the predictor's
+    residuals, then n set to 0 on every fifth lane and past S on every
+    seventh from lane 1 (the residuals past n stay: the values there
+    are compared too), and the zero runs for that n."""
+    from alacnet_tpu_torch.ops.cuda.enc_stages import predictor_errors_fused
+    from alacnet_tpu_torch.ops.encode import zero_run_lengths
+
+    sig, n, lp, rp = _enc_inputs(B, S, 6, dev, seed=seed)
+    errs = predictor_errors_fused(sig, n, lp, S, max_order=6)
+    n = n.clone()
+    n[::5] = 0
+    n[1::7] = S + 9
+    return errs, zero_run_lengths(errs, n, S), n, rp
+
+
+@pytest.mark.parametrize("B", [1, 15, 16, 17, 2048])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 4096])
+def test_rice_emit_lane_and_tile_edges(cuda, B, S):
+    """A block's edges (16 lanes) and a chunk's 2048 lanes, a tile's
+    edges (16 samples) and a frame's 4096; lanes of n = 0 and n > S."""
+    errs, zr, n, rp = _rice_emit_inputs(B, S, cuda)
+    _check_rice_emit(errs, zr, n, rp, S)
+
+
+@pytest.mark.parametrize("B,S", [(16, 100), (2048, 97)])
+def test_rice_emit_misaligned_planes(cuda, B, S):
+    """Inputs whose (S, B) storage starts 4 bytes past a 16-byte
+    boundary, at B % 16 == 0: the kernel copies and stores one element
+    at a time."""
+    errs, zr, n, rp = _rice_emit_inputs(B, S, cuda, seed=3)
+
+    def offset(x):  # the same (B, S) values on storage 4 bytes off
+        flat = torch.zeros(S * B + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = x.t().reshape(-1)
+        return flat[1:].view(S, B).t()
+
+    e, z = offset(errs), offset(zr)
+    assert e.t().data_ptr() % 16 and torch.equal(e, errs)
+    _check_rice_emit(e, z, n, rp, S)
+
+
+# ---------------------------------------------------------------------------
+# bulk_bits: fixed-stride fields at the kernel's edges.
+# ---------------------------------------------------------------------------
+
+#: bulk_bits_case kinds: the widest stride the decoder reads (24 + 24), one
+#: field (n2 = 0), the extra-bits (8 + 8 or 8) and raw16 strides, lanes of
+#: n = 0, n < 0 and n > S, rows of W % 4 == 3 words, a word table 4 bytes
+#: past a 16-byte boundary (both: 4-byte staging), fields that run past the
+#: row's last word (the clip) and positions that wrap in int32.
+BULK_KINDS = ("stride48", "one_field", "extra8", "raw16", "n_edges", "odd_row",
+              "misaligned", "clip", "wrap")
+#: Kinds whose fields leave the row: the kernel clips each word read and
+#: the plain version the window's start (ROADMAP queue 3), so the kernel
+#: is held against bulk_bits_clipped alone there.
+BULK_MALFORMED = ("clip", "wrap")
+
+
+def bulk_bits_case(kind, S, B=24, seed=0):
+    """NumPy int32 inputs of bulk_bits for one of BULK_KINDS: words (B,
+    W), start, n, n1, n2 (B,)."""
+    rng = np.random.default_rng(seed + 31 * BULK_KINDS.index(kind) + S)
+    lane = np.arange(B)
+    n1, n2, n = np.full(B, 24), np.full(B, 24), np.full(B, S)
+    if kind == "one_field":
+        n1, n2 = np.where(lane % 2, 16, 24), np.zeros(B)
+    elif kind == "extra8":
+        n1, n2 = np.full(B, 8), np.where(rng.random(B) < 0.5, 8, 0)
+    elif kind == "raw16":
+        n1 = n2 = np.full(B, 16)
+    elif kind == "n_edges":
+        n = rng.integers(0, S + 1, B)
+        n[::4] = 0
+        n[1:4] = [-3, S + 100, 1]
+    start = rng.integers(0, 200, B)
+    W = (200 + 48 * S) // 32 + 8
+    if kind == "odd_row":
+        W += (3 - W % 4) % 4
+    elif kind == "clip":  # half the row the fields need
+        W = max(8, 48 * S // 64)
+        start = rng.integers(0, 32 * W, B)
+    elif kind == "wrap":
+        start = (1 << 31) - rng.integers(1, 48 * S + 64, B)
+    words = rng.integers(0, 1 << 32, (B, W), dtype=np.uint64).astype(np.uint32)
+    i32 = lambda a: np.asarray(a, np.int64).astype(np.int32)  # noqa: E731
+    return words.view(np.int32), i32(start), i32(n), i32(n1), i32(n2)
+
+
+def bulk_bits_clipped(words, start, n, n1, n2, S):
+    """bulk_bits in NumPy as the kernel reads the row: positions wrap in
+    int32, and each word read clips to the row (to its last word, and
+    below word 0 to words 0 and 1), as the JAX kernel's fetch does."""
+    w = words.view(np.uint32).astype(np.uint64)
+    B, W = w.shape
+    rows = np.arange(B)[:, None]
+
+    def i32(x):
+        return (x & 0xFFFFFFFF).astype(np.uint32).view(np.int32).astype(np.int64)
+
+    def field(p, nbits):
+        wi = np.clip(p >> 5, 0, W - 1)
+        hi, lo = w[rows, wi], w[rows, np.minimum(wi + 1, W - 1)]
+        s = (p & 31).astype(np.uint64)
+        x = ((hi << s) & 0xFFFFFFFF) | np.where(s == 0, 0, lo >> ((32 - s) & 31))
+        return x >> ((32 - nbits.astype(np.int64)) & 31).astype(np.uint64)[:, None]
+
+    stride = (n1.astype(np.int64) + n2) & 0xFFFFFFFF
+    pos = i32(start.astype(np.int64)[:, None] + np.arange(S)[None, :] * stride[:, None])
+    live = np.arange(S)[None, :] < n[:, None]
+    a = np.where(live, field(pos, n1), 0)
+    b = np.where(live & (n2 != 0)[:, None], field(i32(pos + n1[:, None]), n2), 0)
+    return (a.astype(np.uint32).view(np.int32).reshape(B, S),
+            b.astype(np.uint32).view(np.int32).reshape(B, S))
+
+
+@pytest.mark.parametrize("S", [1, 7, 1023, 1025, 4096])
+@pytest.mark.parametrize("kind", BULK_KINDS)
+def test_bulk_bits_edges(cuda, kind, S):
+    """S below, at and past a block's 1024 samples and not a multiple of
+    a thread's 4; the kernel against bulk_bits_clipped everywhere, and
+    against the plain version where the fields stay in the row."""
+    from alacnet_tpu_torch.ops.cuda import _lib
+    from alacnet_tpu_torch.ops.cuda.bulk_bits import bulk_bits
+
+    words, start, n, n1, n2 = bulk_bits_case(kind, S)
+    T = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    tw = T(words)
+    if kind == "misaligned":
+        flat = torch.zeros(words.size + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = tw.reshape(-1)
+        tw = flat[1:].view(words.shape)
+        assert tw.data_ptr() % 16
+    args = (tw, T(start), T(n), T(n1), T(n2), S)
+    before = _lib.LAUNCHES["bulk_bits"]
+    a, b, stalled = bulk_bits(*args, kernel="cuda")
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["bulk_bits"] == before + 1
+    assert stalled.dtype == torch.bool and stalled.shape == (24,) and not stalled.any()
+    want_a, want_b = bulk_bits_clipped(words, start, n, n1, n2, S)
+    assert np.array_equal(a.cpu().numpy(), want_a) and np.array_equal(b.cpu().numpy(), want_b)
+    if kind not in BULK_MALFORMED:
+        plain_a, plain_b, _ = bulk_bits(*args, kernel="torch")
+        assert torch.equal(a, plain_a) and torch.equal(b, plain_b)
+
+
 def test_alac_context_readahead_on_card(cuda):
     """An AlacContext on the card with window=2: the readahead decodes on
     its worker thread across at least three windows, bit-exact to the

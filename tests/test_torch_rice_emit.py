@@ -107,6 +107,37 @@ def test_rice_symbols_fused_trouble_points_match_jax(case):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
 
 
+@pytest.mark.parametrize("seed", range(3))
+def test_rice_symbols_values_past_n_and_at_width_0_match_jax(seed):
+    """Every plane element is defined, not only the live fields: past a
+    lane's n the state holds and the symbols are still computed from the
+    sample's residual and zero run, and a field whose width is 0 keeps
+    its value.  The rice_emit kernel writes all of them (the card tests
+    compare every element), so the plain version is held against JAX on
+    exactly those elements, which are not all zero."""
+    rng = np.random.default_rng(40 + seed)
+    B, S = 24, 256
+    errs, n = _residuals(B, S, rng)
+    n[8:13] = [0, 3, S + 50, 100, -4]  # n = 0, short, past S, partial, < 0
+    zr = np.array(jenc.zero_run_lengths(jnp.asarray(errs), jnp.asarray(n), S))
+    rp = _rice_params(B, 14, 40, "mixed")
+    want, got = _both(errs, zr, n, rp, S)
+    v16, v32, widths = (g.numpy() for g in got[:3])
+    w16, w32 = np.asarray(want[0]), np.asarray(want[1])
+    past = np.arange(S)[None, :] >= n[:, None]
+    assert past.sum() > 0 and not widths[past].any()
+    for name, g, w in (("vals16", v16, w16), ("vals32", v32, w32)):
+        np.testing.assert_array_equal(g[past], w[past], err_msg=name)
+        assert g[past].any(), name
+    # fields of width 0 inside n: v0/v1 where the value symbol is not
+    # live (a skipped zero run), v2/v3 where no zero-run symbol follows
+    for field, (g, w, k) in enumerate(((v16, w16, 0), (v32, w32, 0), (v16, w16, 1),
+                                       (v32, w32, 1))):
+        idle = ~past & (widths[:, :, field] == 0)
+        np.testing.assert_array_equal(g[:, :, k][idle], w[:, :, k][idle], err_msg=str(field))
+    assert (~past & (widths[:, :, 2] == 0) & (v16[:, :, 1] != 0)).any()
+
+
 def test_rice_symbols_fused_empty_shapes():
     rp = tenc.RiceEncParams(*(torch.full((3,), v, dtype=torch.int32)
                               for v in (16, 14, 10, 40, (1 << 14) - 1)))
