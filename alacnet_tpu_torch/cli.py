@@ -3,16 +3,17 @@
 The counterpart of ``alacnet_tpu/cli.py``:
 
     python -m alacnet_tpu_torch.cli info|decode|encode|batch-encode|
-                                    batch-decode|verify|stats ...
+                                    batch-decode|verify|stats|bench ...
 
 Metadata inspection, decode to WAV (whole, with the demo's
 seek-to-middle through ``ALACFileReader``, or streamed in resumable
 chunks), WAV to ALAC encode, pooled batch decode and encode, a lossless
-round-trip check and the pipeline counters.  Every command that decodes
-or encodes runs on ``--device`` (default ``cuda``, which raises without
-a card; ``cpu`` runs the kernels' plain torch versions); ``encode
---host`` runs the host encoder instead.  The JAX package's ``bench`` and
-``--mesh`` are not part of the port yet.
+round-trip check, the pipeline counters and the benchmarks
+(``bench_lib``; one JSON line).  Every command that decodes or encodes
+runs on ``--device`` (default ``cuda``, which raises without a card;
+``cpu`` runs the kernels' plain torch versions); ``encode --host`` runs
+the host encoder instead.  The JAX package's ``--mesh`` is not part of
+the port yet.
 """
 
 from __future__ import annotations
@@ -249,6 +250,27 @@ def _cmd_stats(args) -> int:
     return 0
 
 
+def _cmd_bench(args) -> int:
+    """One benchmark record as one JSON line."""
+    from .bench_lib import run_benchmark, run_e2e_benchmark, run_full_benchmark
+
+    seeds = {} if args.seed is None else {"seed": args.seed}
+    if args.full:
+        result = run_full_benchmark(repeats=args.repeats, dispersion=args.dispersion,
+                                    device=args.device, trace_dir=args.trace, **seeds)
+    elif args.e2e:
+        result = run_e2e_benchmark(repeats=args.repeats, device=args.device,
+                                   trace_dir=args.trace, **seeds)
+    else:
+        result = run_benchmark(
+            batch=args.batch, seconds_of_audio=args.seconds, bits=args.bits,
+            repeats=args.repeats, kind=args.kind, dispersion=args.dispersion,
+            device=args.device, trace_dir=args.trace, **seeds,
+        )
+    print(json.dumps(result))
+    return 0
+
+
 def _device_arg(p, help_: str) -> None:
     p.add_argument("--device", default="cuda", help=help_)
 
@@ -257,7 +279,7 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="alac-tpu-torch",
         description="batch ALAC codec on PyTorch and CUDA "
-        "(info/decode/encode/batch-encode/batch-decode/verify/stats)",
+        "(info/decode/encode/batch-encode/batch-decode/verify/stats/bench)",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
     on_dev = "torch device of the decode (default cuda; cpu runs the plain versions)"
@@ -328,6 +350,41 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("paths", nargs="+")
     _device_arg(p, on_dev)
     p.set_defaults(fn=_cmd_stats)
+
+    p = sub.add_parser("bench", help="decode/encode throughput benchmark")
+    p.add_argument("--batch", type=int, default=1024, help="frames of the kind run")
+    p.add_argument(
+        "--seconds", type=float, default=None,
+        help="size the kind run in seconds of 44.1 kHz audio instead of --batch",
+    )
+    p.add_argument("--bits", type=int, default=16)
+    p.add_argument(
+        "--repeats", type=int, default=5,
+        help="host-clock runs behind each e2e and encode median, and passes "
+        "of each device timing run (at least 5)",
+    )
+    p.add_argument(
+        "--dispersion", type=int, default=5,
+        help="device timing runs behind each kind's median (default 5)",
+    )
+    p.add_argument(
+        "--kind", default="music",
+        help="corpus kind: music|spiky|silence|orders|hires24|fat24",
+    )
+    p.add_argument(
+        "--e2e", action="store_true",
+        help="sustained decode_blob to host PCM over the mixed corpus",
+    )
+    p.add_argument(
+        "--full", action="store_true",
+        help="e2e + per-kind device stages + encode, one record",
+    )
+    p.add_argument("--seed", type=int, default=None,
+                   help="corpus seed (default: each benchmark's own)")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write one run's Chrome trace (capture_trace) into DIR")
+    _device_arg(p, "torch device of the benchmark (default cuda; cpu is untimed)")
+    p.set_defaults(fn=_cmd_bench)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -11,6 +11,7 @@ in flight: the host parses batch k+1 while the card decodes batch k.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -76,6 +77,55 @@ def pad_frame_batch(fb: FrameBatch, batch: int | None = None) -> FrameBatch:
     return FrameBatch(**fields)
 
 
+class StagedBatch(NamedTuple):
+    """The host half of one batch's dispatch (:func:`stage_frame_batch`)."""
+
+    #: (B, W) uint32 host word rows, or None when the device cuts them.
+    words: np.ndarray | None
+    #: (2, B) int32 per-lane (word offset, byte count) for ``pack_rows``.
+    rows: np.ndarray | None
+    W: int
+    #: (B, 83) int32 ``FrameMetaArrays.pack_host`` matrix.
+    meta: np.ndarray
+    emit16: bool
+    orig_b: int
+
+
+def stage_frame_batch(
+    fb: FrameBatch, config: DecodeConfig, device_rows=None,
+) -> StagedBatch:
+    """Host half of :func:`dispatch_frame_batch`: pad the lanes, pick the
+    output dtype, pack the metadata and (``device_rows = (ow, nbytes,
+    W)``) the row parameters."""
+    orig_b = fb.batch
+    fb = pad_frame_batch(fb)
+    emit16 = config.emit16 and bool((fb.sample_size == 16).all())
+    meta = FrameMetaArrays.pack_host(fb)
+    if device_rows is None:
+        return StagedBatch(fb.words, None, fb.words.shape[1], meta, emit16, orig_b)
+    ow, nbytes, W = device_rows
+    rows = np.stack([_pad_axis0(ow, fb.batch), _pad_axis0(nbytes, fb.batch)])
+    return StagedBatch(None, rows, W, meta, emit16, orig_b)
+
+
+def launch_frame_batch(
+    staged: StagedBatch, max_samples: int, config: DecodeConfig, bwords=None,
+):
+    """Device half of :func:`dispatch_frame_batch`: upload the staged
+    batch, cut its rows from ``bwords`` (kernel 1) when it has row
+    parameters, and queue the decode; returns (out, n) device tensors
+    without synchronising."""
+    dev = config.torch_device
+    if staged.rows is not None:
+        rows = h2d(staged.rows, dev)
+        words = pack_rows(bwords, rows[0], rows[1], staged.W, kernel=config.kernel)
+    else:
+        words = h2d(staged.words.view(np.int32), dev)
+    return decode_frames_packed(
+        words, staged.meta, max_samples, emit16=staged.emit16, kernel=config.kernel,
+    )
+
+
 def dispatch_frame_batch(
     fb: FrameBatch, max_samples: int, config: DecodeConfig, device_rows=None,
 ):
@@ -88,22 +138,12 @@ def dispatch_frame_batch(
     (kernel 1) instead of shipped from the host; fb carries an empty
     (B, 0) words placeholder.
     """
-    dev = config.torch_device
-    orig_b = fb.batch
-    fb = pad_frame_batch(fb)
-    emit16 = config.emit16 and bool((fb.sample_size == 16).all())
+    bwords = None
     if device_rows is not None:
-        bwords, ow, nbytes, W = device_rows
-        rows = h2d(np.stack([_pad_axis0(ow, fb.batch),
-                             _pad_axis0(nbytes, fb.batch)]), dev)
-        words = pack_rows(bwords, rows[0], rows[1], W, kernel=config.kernel)
-    else:
-        words = h2d(fb.words.view(np.int32), dev)
-    out, n = decode_frames_packed(
-        words, FrameMetaArrays.pack_host(fb), max_samples, emit16=emit16,
-        kernel=config.kernel,
-    )
-    return out, n, orig_b
+        bwords, device_rows = device_rows[0], device_rows[1:]
+    staged = stage_frame_batch(fb, config, device_rows)
+    out, n = launch_frame_batch(staged, max_samples, config, bwords)
+    return out, n, staged.orig_b
 
 
 def decode_frame_batch(
@@ -225,6 +265,45 @@ def plan_blob_batches(
     return perm, inv, spans, span_batch
 
 
+def blob_spans(blob, offsets, sizes, params, batch_limit: int, config: DecodeConfig):
+    """The host stage of :func:`decode_blob`: parse and plan the blob's
+    frames (:func:`plan_blob_batches`), then assemble each span on demand.
+
+    Returns ``(inv, max_w, spans)``: the plan's inverse permutation; with
+    ``config.device_pack``, the widest row any span will gather (else
+    None: the host packs the rows); and a lazy iterator of ``(idx, fb,
+    rows)`` — a span's frame indices, its FrameBatch and, with
+    ``max_w``, its device row parameters ``(ow, nbytes, W)`` (else None).
+    """
+    sizes = np.asarray(sizes)
+    with trace_span("alac.host.parse", "host_seconds"):
+        perm, inv, spans, span_batch = plan_blob_batches(
+            blob, offsets, sizes, params, batch_limit, config.strict,
+            native=config.native,
+        )
+    max_w = None
+    if config.device_pack:
+        # Widest row any span will gather: the fattest frame's bytes
+        # plus its <=3-byte sub-word shift.  Sizing the blob padding to
+        # it keeps every tail-frame window in bounds.
+        max_w = words_width(
+            int(sizes.max()) + 3 if len(sizes) else 0, WORD_BUCKET
+        )
+
+    def assemble():
+        for lo, hi in spans:
+            idx = perm[lo:hi]
+            with trace_span("alac.host.parse", "host_seconds"):
+                if max_w is not None:
+                    fb, ow, nb, W = span_batch(idx, device_rows=True)
+                    rows = (ow, nb, W)
+                else:
+                    fb, rows = span_batch(idx), None
+            yield idx, fb, rows
+
+    return inv, max_w, assemble()
+
+
 def decode_blob(
     blob: np.ndarray,
     offsets: np.ndarray,
@@ -254,19 +333,9 @@ def decode_blob(
     if batch_limit is None:
         batch_limit = config.batch_limit
     sizes = np.asarray(sizes)
-    with trace_span("alac.host.parse", "host_seconds"):
-        perm, inv, spans, span_batch = plan_blob_batches(
-            blob, offsets, sizes, params, batch_limit, config.strict,
-            native=config.native,
-        )
+    inv, max_w, spans = blob_spans(blob, offsets, sizes, params, batch_limit, config)
     bwords = None
-    if config.device_pack:
-        # Widest row any span will gather: the fattest frame's bytes
-        # plus its <=3-byte sub-word shift.  Sizing the blob padding to
-        # it keeps every tail-frame window in bounds.
-        max_w = words_width(
-            int(sizes.max()) + 3 if len(sizes) else 0, WORD_BUCKET
-        )
+    if max_w is not None:
         bwords = blob_words(np.asarray(blob), config.torch_device, max_w=max_w)
     outs, ns, sts = [], [], []
     pending: list = []
@@ -288,17 +357,10 @@ def decode_blob(
         ns.append(n)
         sts.append(status)
 
-    for lo, hi in spans:
-        idx = perm[lo:hi]
-        rows = None
-        with trace_span("alac.host.parse", "host_seconds"):
-            if bwords is not None:
-                fb, ow, nb, W = span_batch(idx, device_rows=True)
-                rows = (bwords, ow, nb, W)
-            else:
-                fb = span_batch(idx)
+    for idx, fb, rows in spans:
         out_d, n_d, orig_b = dispatch_frame_batch(
-            fb, max_samples, config, device_rows=rows
+            fb, max_samples, config,
+            device_rows=None if rows is None else (bwords, *rows),
         )
         if sink is not None:
             sink(out_d, n_d, orig_b)
@@ -306,7 +368,7 @@ def decode_blob(
         else:
             wait = d2h_async(out_d[:orig_b], n_d[:orig_b])
         pending.append(
-            (wait, orig_b, hi - lo, int(sizes[idx].sum()), fb.status[: hi - lo])
+            (wait, orig_b, len(idx), int(sizes[idx].sum()), fb.status[: len(idx)])
         )
         if len(pending) >= 2:
             drain_one()

@@ -73,7 +73,17 @@ on failure, each printing its seconds:
    tiled to 1,504 frames, encoded by the port): ``AlacContext.read_all``
    at the default window and ``ALACFileReader.read(65536)`` loops, and
    ``rice_lpc``'s time per pass at that shape (the calls of one more
-   ``read_all``, each through the kernel again, CUDA events).
+   ``read_all``, each through the kernel again, CUDA events);
+8. bench — ``alacnet_tpu_torch.bench_lib.run_full_benchmark`` on the card
+   at the bench's own frame counts (the e2e decode to host PCM and the
+   sink decode over 12,288 mixed frames, each kind's device stage over
+   4,096 frames, the encode over 2,048), at its default runs (5 behind
+   every median, ``bench_lib.MIN_REPEATS``), with the e2e profiler run's
+   Chrome trace (``capture_trace``) written to a temporary directory;
+   its record goes on a ``bench`` line.  It fails unless ``parity_ok``
+   holds, every headline is above 0, the e2e device-busy share is a
+   measured number, the trace names the ``rice_lpc`` kernel and each
+   kernel of the bench's paths (all but ``rice_emit``) launched.
 
 In the ``kernels`` line, ``ms`` is the kernel's time summed over every
 call the path made (mean of 5 launches each from the host, CUDA
@@ -171,6 +181,8 @@ API_WINDOW = 4
 RESUME_FRAMES = 5
 #: Copies of music.m4a's PCM (16 frames) in phase 7's long stream.
 LONG_COPIES = 94
+#: The kernels the bench's paths launch (rice_emit is on no encoder path).
+BENCH_KERNELS = DECODE_KERNELS + ENCODE_KERNELS
 #: Where encode_stages_fused calls each encode kernel wrapper.
 ENC_CALL_SITES = {
     k: ("alacnet_tpu_torch.ops.cuda.enc_stages", attr)
@@ -553,39 +565,6 @@ def event_timer(intervals):
     return make
 
 
-def profile_busy(run) -> dict:
-    """Run ``run()`` under torch.profiler; the device-busy time and the
-    busiest ops."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t1
-    # Sum the device-side events only (kernels and copies): a CPU op's
-    # device time repeats that of the kernels it launched.
-    by_kernel = {}
-    busy_us = 0.0
-    for ev in prof.key_averages():
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            busy_us += dev_us
-            by_kernel[ev.key[:60]] = dev_us / 1e3
-    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
-    return {
-        "profiled_wall_s": prof_wall,
-        "device_busy_ms": busy_us / 1e3 if busy_us else "not measured",
-        "device_busy_share": busy_us / 1e6 / prof_wall if busy_us else "not measured",
-        "device_ms_by_op": top,
-    }
-
-
 def pcm_sha(pcm) -> str:
     return hashlib.sha256(pcm.astype(pcm.dtype.newbyteorder("<")).tobytes()).hexdigest()
 
@@ -596,7 +575,7 @@ def run_e2e(names, data, expected, config, card: str):
 
     import alacnet_tpu_torch
     from alacnet_tpu_torch.ops.cuda import _lib
-    from alacnet_tpu_torch.utils.observability import GLOBAL_STATS
+    from alacnet_tpu_torch.utils.observability import GLOBAL_STATS, profile_busy
 
     intervals = []
     _lib.reset_launches()
@@ -774,6 +753,7 @@ def run_encode_e2e(decoded, names, expected, enc_expected, card: str) -> dict:
 
     import alacnet_tpu_torch
     from alacnet_tpu_torch.ops.cuda import _lib
+    from alacnet_tpu_torch.utils.observability import profile_busy
 
     packers = {"pair": 0, "chunk": 0}
     pack_sites = {
@@ -1019,6 +999,44 @@ def time_session_passes(data: bytes) -> dict:
             "max_ms": max(ms), "sum_ms": sum(ms)}
 
 
+def run_bench() -> dict:
+    """Phase 8: the port's bench on the card, its record checked."""
+    import torch
+
+    from alacnet_tpu_torch import bench_lib
+    from alacnet_tpu_torch.ops.cuda import _lib
+
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = bench_lib.run_full_benchmark(trace_dir=tmp)
+        launches = dict(_lib.LAUNCHES)
+        trace = rec["e2e_trace_file"]
+        trace_text = pathlib.Path(trace).read_text() if trace else ""
+    emit({"bench": rec})
+    emit({"bench_summary": bench_lib.summary(rec)})
+    if not rec["parity_ok"]:
+        raise RuntimeError(f"the bench's lossless gate failed: {rec['parity_by_part']}")
+    headlines = {
+        "value": rec["value"], "e2e_sink_msamples_per_s": rec["e2e_sink_msamples_per_s"],
+        "e2e_stage_bound_msps": rec["e2e_stage_bound_msps"],
+        **{f"device_msps_by_kind.{k}": v for k, v in rec["device_msps_by_kind"].items()},
+        **{k: rec[k] for k in ("encode_msps", "encode_wall_msps", "encode_device_msps")},
+    }
+    low = {k: v for k, v in headlines.items() if not (isinstance(v, float) and v > 0)}
+    if low or len(rec["device_msps_by_kind"]) != len(bench_lib.CORPUS_KINDS):
+        raise RuntimeError(f"bench headlines not above 0: {low}")
+    busy = rec["e2e_device_busy_share"]
+    if not (isinstance(busy, float) and busy > 0):
+        raise RuntimeError(f"the e2e device-busy share is not measured: {busy!r}")
+    if "rice_lpc" not in trace_text:
+        raise RuntimeError(f"the capture_trace run's trace ({trace}) names no rice_lpc")
+    missing = [k for k in BENCH_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise RuntimeError(f"the bench launched no {missing} kernel")
+    return {"launches": launches, "trace_bytes": len(trace_text)}
+
+
 def main() -> int:
     try:
         import torch
@@ -1095,10 +1113,18 @@ def main() -> int:
     time_session_api(decoded, smi)
     emit({"phase": 7, "seconds": time.perf_counter() - t})
 
+    del decoded
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    bench = run_bench()
+    emit({"phase": 8, "seconds": time.perf_counter() - t,
+          "trace_bytes": bench["trace_bytes"]})
+
     launches = {**e2e["launches"], **enc["launches"], **route["launches"]}
     kernels = [
         {"name": k, "route": "cuda", "source": f"alacnet_tpu_torch/csrc/{k}.cu",
          "replaces": KERNELS[k], "path": KERNEL_PATHS[k], "launches": launches[k],
+         "bench_launches": bench["launches"].get(k, 0),
          "max_abs_err": checks[k]["max_abs_err"], "calls": checks[k]["calls"],
          "plain_calls": len(checks[k]["compared_calls"]),
          "ms": checks[k]["ms_all_calls"], "device_ms": checks[k].get("device_ms"),

@@ -164,7 +164,7 @@ def encode_turn(pkg_name: str, decoded, names) -> tuple[dict, list[bytes]]:
 
 def encode_e2e(trees: dict, decoded, names, rounds: int, smi: str) -> dict:
     """The ``encode_e2e`` set: {tree label: package name} in turns."""
-    import chip_smoke as cs
+    from alacnet_tpu_torch.utils.observability import profile_busy
 
     order = list(trees)
     runs = {t: [] for t in order}
@@ -179,7 +179,7 @@ def encode_e2e(trees: dict, decoded, names, rounds: int, smi: str) -> dict:
             exact = exact and datas == outs[0]
     busy = {}
     for tree in order:
-        b = cs.profile_busy(lambda: encode_turn(trees[tree], decoded, names))
+        b = profile_busy(lambda: encode_turn(trees[tree], decoded, names))
         busy[tree] = {k: b[k] for k in ("profiled_wall_s", "device_busy_ms",
                                          "device_busy_share")}
     med = {key: {t: statistics.median(r[key] for r in runs[t]) for t in order}

@@ -891,3 +891,17 @@ def test_alac_context_readahead_on_card(cuda):
     le = np.dtype(want["dtype"]).newbyteorder("<")
     assert hashlib.sha256(pcm.astype(le).tobytes()).hexdigest() == want["sha256"]
     assert _lib.LAUNCHES["rice_lpc"] > before
+
+
+def test_bench_music_on_the_card(cuda):
+    """``run_benchmark`` at a small batch on the card: the lossless gate,
+    the kernels it times, and event-timed numbers."""
+    from alacnet_tpu_torch.bench_lib import run_benchmark
+
+    rec = run_benchmark(batch=256, kind="music", device="cuda", dispersion=2)
+    assert rec["parity_ok"] is True
+    assert rec["device"]["type"] == "cuda" and rec["device"]["count"] >= 1
+    assert rec["value"] > 0 and rec["device_s"] > 0 and rec["host_enqueue_s"] > 0
+    assert len(rec["device_runs_s"]) == 2 and rec["dispersion"]["n"] == 2
+    assert rec["fused_kernel"] is True
+    assert rec["kernel_launches"]["rice_lpc"] > 0 and rec["kernel_launches"]["pack_rows"] > 0

@@ -68,6 +68,52 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     assert _no_ok_line(res.stdout)
 
 
+def test_bench_imports_no_jax():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "import alacnet_tpu_torch.bench_lib as b\n"
+        "assert b.CORPUS_KINDS[0] == 'music'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'alacnet_tpu')"
+        " and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = _run(["-c", code], cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def _no_json_record(stdout: str) -> bool:
+    for line in stdout.splitlines():
+        try:
+            json.loads(line)
+        except ValueError:
+            continue
+        return False
+    return True
+
+
+def test_bench_torch_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: bench_torch.py would run for real")
+    code = (
+        "import runpy, sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "sys.argv = ['bench_torch.py']\n"
+        "runpy.run_path('bench_torch.py', run_name='__main__')\n"
+    )
+    res = _run(["-c", code], cwd=ROOT)
+    assert res.returncode != 0
+    assert "CUDA" in res.stderr
+    assert _no_json_record(res.stdout)
+
+
+def test_bench_torch_fails_outside_a_checkout(tmp_path):
+    shutil.copy(ROOT / "bench_torch.py", tmp_path / "bench_torch.py")
+    res = _run(["bench_torch.py"], cwd=tmp_path)
+    assert res.returncode != 0
+    assert _no_json_record(res.stdout)
+
+
 def test_cuda_config_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
