@@ -14,7 +14,9 @@ it has the JAX package's session and streaming API (``AlacContext``,
 Decoding runs on ``DecodeConfig.device`` and batch encoding on
 ``encode_files(device=)`` (both default ``"cuda"``, which raises without
 a card); pass ``device="cpu"`` to run the kernels' plain torch versions
-on the CPU.
+on the CPU.  ``mesh=`` (``parallel/mesh.py``) spreads the frames of a
+decode or an encode over several devices or streams, and
+``parallel/distributed.py`` over processes.
 """
 
 from .batch import (

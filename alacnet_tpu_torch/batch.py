@@ -59,14 +59,18 @@ def _collect(stream: BinaryIO):
 
 def decode_streams(
     streams: Iterable[BinaryIO], strict: bool | None = None,
-    device: str | None = None, config: DecodeConfig | None = None,
+    device: str | None = None, config: DecodeConfig | None = None, mesh=None,
 ) -> list[DecodedAudio]:
     """Decode many open .m4a streams in pooled device batches.
 
     ``config`` (default ``DecodeConfig()``, which decodes on ``cuda``)
     with ``device``/``strict`` overrides.  ``strict=False`` skips (and
-    reports) undecodable frames instead of raising.
+    reports) undecodable frames instead of raising.  ``mesh``
+    (``parallel/mesh.Mesh``, overrides the device): shard every batch's
+    lanes over its devices and streams (``decode_blob(mesh=)``).
     """
+    if mesh is not None:
+        device = str(mesh.devices[0])
     config = resolve(config, device=device, strict=strict)
     infos, spans = [], []
     blobs, all_offsets, all_sizes, all_params = [], [], [], []
@@ -102,6 +106,7 @@ def decode_streams(
         all_params,
         max_s,
         config=config,
+        mesh=mesh,
     )
     # Vectorized ragged assembly: one boolean compress per file.
     S = out.shape[1]
@@ -137,14 +142,15 @@ def decode_streams(
 
 def decode_files(
     paths: Iterable[str | os.PathLike], strict: bool | None = None,
-    device: str | None = None, config: DecodeConfig | None = None,
+    device: str | None = None, config: DecodeConfig | None = None, mesh=None,
 ) -> list[DecodedAudio]:
-    """Decode many .m4a files in pooled device batches."""
+    """Decode many .m4a files in pooled device batches (``mesh`` as for
+    :func:`decode_streams`)."""
     paths = list(paths)
     streams = [open(p, "rb") for p in paths]
     try:
         results = decode_streams(
-            streams, strict=strict, device=device, config=config
+            streams, strict=strict, device=device, config=config, mesh=mesh
         )
     finally:
         for s in streams:

@@ -12,8 +12,9 @@ round-trip check, the pipeline counters and the benchmarks
 (``bench_lib``; one JSON line).  Every command that decodes or encodes
 runs on ``--device`` (default ``cuda``, which raises without a card;
 ``cpu`` runs the kernels' plain torch versions); ``encode --host`` runs
-the host encoder instead.  The JAX package's ``--mesh`` is not part of
-the port yet.
+the host encoder instead.  ``--mesh`` (``encode``, ``batch-encode``,
+``batch-decode``) shards the frames over every visible device of
+``--device``'s type (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -122,6 +123,19 @@ def _cmd_decode(args) -> int:
     return 0
 
 
+def _mesh(args):
+    """The mesh of ``--mesh``: every visible card for a CUDA ``--device``,
+    the one CPU device for ``cpu``; None without the flag."""
+    if not args.mesh:
+        return None
+    import torch
+
+    from .parallel.mesh import make_mesh
+
+    dev = torch.device(args.device)
+    return make_mesh() if dev.type == "cuda" else make_mesh([dev])
+
+
 def _cmd_encode(args) -> int:
     from .codec.encoder import EncoderConfig, encode_m4a
     from .pcm import read_wav
@@ -133,7 +147,8 @@ def _cmd_encode(args) -> int:
     cfg = EncoderConfig(order=args.order)
     t0 = time.perf_counter()
     with open(args.output, "wb") as f:
-        encode_m4a(f, pcm, rate, bits, cfg, device=None if args.host else args.device)
+        encode_m4a(f, pcm, rate, bits, cfg, device=None if args.host else args.device,
+                   mesh=None if args.host else _mesh(args))
     dt = time.perf_counter() - t0
     ratio = os.path.getsize(args.output) / max(1, pcm.size * (bits // 8))
     print(f"encoded {pcm.shape[0]} samples in {dt:.3f}s — ratio {ratio:.3f}")
@@ -173,7 +188,7 @@ def _cmd_batch_encode(args) -> int:
     outs = _unique_outputs(args.paths, args.out_dir, ".m4a")
     cfg = EncoderConfig(order=args.order)
     t0 = time.perf_counter()
-    encode_files(pcms, outs, rates, bits_l, cfg, device=args.device)
+    encode_files(pcms, outs, rates, bits_l, cfg, device=args.device, mesh=_mesh(args))
     dt = time.perf_counter() - t0
     total = sum(p.shape[0] for p in pcms)
     coded = sum(os.path.getsize(o) for o in outs)
@@ -192,7 +207,8 @@ def _cmd_batch_decode(args) -> int:
     from .pcm import write_wav
 
     t0 = time.perf_counter()
-    results = decode_files(args.paths, strict=not args.lenient, device=args.device)
+    results = decode_files(args.paths, strict=not args.lenient, device=args.device,
+                           mesh=_mesh(args))
     dt = time.perf_counter() - t0
     total = sum(r.num_samples for r in results)
     bad = sum(len(r.bad_frames) for r in results)
@@ -275,6 +291,13 @@ def _device_arg(p, help_: str) -> None:
     p.add_argument("--device", default="cuda", help=help_)
 
 
+def _mesh_arg(p) -> None:
+    p.add_argument(
+        "--mesh", action="store_true",
+        help="shard the frames over every visible device of --device's type",
+    )
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="alac-tpu-torch",
@@ -313,6 +336,7 @@ def main(argv: list[str] | None = None) -> int:
         "--host", action="store_true",
         help="encode with the host encoder instead of on --device",
     )
+    _mesh_arg(p)
     p.set_defaults(fn=_cmd_encode)
 
     p = sub.add_parser(
@@ -324,6 +348,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--order", type=int, default=6)
     p.add_argument("--bits", type=int, default=0, help="override the WAV bit depth")
     _device_arg(p, "torch device of the encode stages (default cuda)")
+    _mesh_arg(p)
     p.set_defaults(fn=_cmd_batch_encode)
 
     p = sub.add_parser(
@@ -336,6 +361,7 @@ def main(argv: list[str] | None = None) -> int:
         help="skip undecodable frames instead of raising",
     )
     _device_arg(p, on_dev)
+    _mesh_arg(p)
     p.set_defaults(fn=_cmd_batch_decode)
 
     p = sub.add_parser(

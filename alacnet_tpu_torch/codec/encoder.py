@@ -580,12 +580,12 @@ class AlacEncoder:
                     w.write(u & ((1 << (ss - 16)) - 1), ss - 16)
 
 
-def _host_only(device, config: EncoderConfig | None) -> bool:
-    """True when a call encodes on the host: no device was named, or
-    the frames are raw PCM, which the device pipeline does not carry."""
-    return device is None or device is False or bool(
-        config and config.force_uncompressed
-    )
+def _host_only(device, config: EncoderConfig | None, mesh=None) -> bool:
+    """True when a call encodes on the host: no device or mesh was
+    named, or the frames are raw PCM, which the device pipeline does not
+    carry."""
+    no_device = (device is None or device is False) and mesh is None
+    return no_device or bool(config and config.force_uncompressed)
 
 
 def encode_m4a(
@@ -597,6 +597,7 @@ def encode_m4a(
     max_samples_per_frame: int = 4096,
     device=None,
     kernel: str = "auto",
+    mesh=None,
     **mux_kwargs,
 ) -> CodecParams:
     """Encode a PCM array (num_samples, channels) into a complete .m4a.
@@ -605,7 +606,9 @@ def encode_m4a(
     encode stages frame-parallel there (codec/encoder_device.py) —
     byte-identical output; ``None`` or ``False`` (the default) encodes
     on the host.  ``kernel`` routes the device stages ("auto", "cuda",
-    "torch"; ops/cuda/_lib.py).
+    "torch"; ops/cuda/_lib.py).  ``mesh`` (``parallel/mesh.Mesh``;
+    implies the device path and overrides ``device``) splits the frames
+    over its shards.
     """
     pcm = np.asarray(pcm)
     if pcm.ndim == 1:
@@ -622,11 +625,11 @@ def encode_m4a(
         for s in range(0, nsamples, max_samples_per_frame)
     ]
     durations = [len(c) for c in chunks]
-    if not _host_only(device, config):
+    if not _host_only(device, config, mesh):
         from .encoder_device import encode_frames_device
 
         frames = encode_frames_device(
-            chunks, params, config, device=device, kernel=kernel
+            chunks, params, config, device=device, kernel=kernel, mesh=mesh
         )
     else:
         enc = AlacEncoder(params, config)
@@ -644,6 +647,7 @@ def encode_files(
     max_samples_per_frame: int = 4096,
     device="cuda",
     kernel: str = "auto",
+    mesh=None,
     **mux_kwargs,
 ) -> "list[CodecParams]":
     """Encode many PCM arrays into .m4a files in POOLED device batches —
@@ -663,7 +667,9 @@ def encode_files(
     of the batch path; ``None`` or ``False`` encodes with the host
     AlacEncoder per frame (also taken for ``config.force_uncompressed``,
     which the device pipeline does not carry).  ``kernel`` routes the
-    device stages.  Returns the per-file CodecParams.
+    device stages.  ``mesh`` (``parallel/mesh.Mesh``; implies the device
+    path and overrides ``device``) splits each chunk's frames over its
+    shards.  Returns the per-file CodecParams.
     """
     import os
 
@@ -689,8 +695,8 @@ def encode_files(
     for i, p in enumerate(pcms):
         groups.setdefault((rates[i], sizes[i], p.shape[1]), []).append(i)
 
-    use_host = _host_only(device, config)
-    if not use_host:
+    use_host = _host_only(device, config, mesh)
+    if not use_host and mesh is None:
         from .encoder_device import check_device
 
         check_device(device)
@@ -719,7 +725,7 @@ def encode_files(
             from .encoder_device import encode_frames_device
 
             frames = encode_frames_device(
-                chunks, params, config, device=device, kernel=kernel
+                chunks, params, config, device=device, kernel=kernel, mesh=mesh
             )
         pos = 0
         for j, i in enumerate(idxs):

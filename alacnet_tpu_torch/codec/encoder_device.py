@@ -259,15 +259,18 @@ def _prep(frames, params: CodecParams, cfg: EncoderConfig, enc: AlacEncoder):
 
 
 def _dispatch(prep, params: CodecParams, cfg: EncoderConfig, device: torch.device,
-              kernel: str = "auto", pairs: bool | None = None):
+              kernel: str = "auto", pairs: bool | None = None, mesh=None):
     """Upload the prepped batch, queue the device stages and the D2H of
     their planes, and return a callable that waits for the planes and
-    gives them as NumPy arrays.
+    gives them as NumPy arrays in the packers' flat (2F, ...) layout.
 
     ``pairs`` (default: on when the native tier is available, which the
     pair packer needs) selects the pair-merged planes; a batch with a
     non-fitting pair re-dispatches the classic per-sample planes through
     ``prep["_classic_dispatch"]`` (see :func:`_pack_host_pairs`).
+    ``mesh`` (``parallel/mesh.Mesh``; ``device`` is then unused): the
+    frames split over its shards (``mesh.encode_stages_pcm_spmd``), and
+    the host joins the shards' (2, f, ...) planes along the frames.
     """
     from ..ops.encode import RiceEncParams, encode_stages_pcm
 
@@ -276,7 +279,7 @@ def _dispatch(prep, params: CodecParams, cfg: EncoderConfig, device: torch.devic
     prep["pairs"] = pairs
     if pairs:
         prep["_classic_dispatch"] = lambda: _dispatch(
-            prep, params, cfg, device, kernel, pairs=False
+            prep, params, cfg, device, kernel, pairs=False, mesh=mesh
         )
 
     B, S, order = prep["B"], prep["S"], prep["order"]
@@ -294,18 +297,34 @@ def _dispatch(prep, params: CodecParams, cfg: EncoderConfig, device: torch.devic
         lanes(params.rice_history_mult_for(cfg.rice_modifier)),
         lanes(params.rice_kmodifier_mask), prep["ns"],
     ]).astype(np.int32)
+    max_order = 0 if order in (0, 31) else order
+    stage_args = dict(max_order=max_order, lw=prep["lw"], sh=prep["sh"],
+                      ub8=prep["ub8"], wide=prep["wide"], kernel=kernel, pairs=pairs)
+    if mesh is not None:
+        from ..parallel.mesh import encode_stages_pcm_spmd
+
+        order_h, quant_h, rss_h, kmod_h, ihist_h, mult_h, kmask_h, ns_h = cols
+        planes = encode_stages_pcm_spmd(
+            prep["pcm"], prep["stereo_f"], ns_h,
+            LpcParams(order=order_h, quant=quant_h, rc=rc, rss=rss_h),
+            RiceEncParams(rss=rss_h, kmod=kmod_h, init_history=ihist_h,
+                          mult=mult_h, kmask=kmask_h),
+            mesh, S, **stage_args,
+        )
+        waits = [p.fetch() for p in planes]
+        return lambda: tuple(
+            a.reshape(B, *a.shape[2:]) for a in (w() for w in waits)
+        )
     cols_d = h2d(cols, device)
     order_d, quant_d, rss_d, kmod_d, ihist_d, mult_d, kmask_d, ns_d = cols_d
     lp = LpcParams(order=order_d, quant=quant_d, rc=h2d(rc, device), rss=rss_d)
     rp = RiceEncParams(
         rss=rss_d, kmod=kmod_d, init_history=ihist_d, mult=mult_d, kmask=kmask_d
     )
-    max_order = 0 if order in (0, 31) else order
     planes = encode_stages_pcm(
         h2d(prep["pcm"], device),
         h2d(prep["stereo_f"].astype(np.uint8), device).to(torch.bool),
-        ns_d, lp, rp, S, max_order=max_order, lw=prep["lw"], sh=prep["sh"],
-        ub8=prep["ub8"], wide=prep["wide"], kernel=kernel, pairs=pairs,
+        ns_d, lp, rp, S, **stage_args,
     )
     return d2h_async(*planes)
 
@@ -476,6 +495,7 @@ def encode_frames_device(
     chunk_frames: int | None = None,
     device="cuda",
     kernel: str = "auto",
+    mesh=None,
 ) -> list[bytes]:
     """Encode PCM frames in device batches.
 
@@ -494,6 +514,12 @@ def encode_frames_device(
     chunks — ``prep_s`` (host prep and the device dispatch, which does
     not wait for the device), ``emit_wait_s`` (waiting for the planes),
     ``plane_bytes`` (their size), ``pack_s``.
+
+    ``mesh`` (``parallel/mesh.Mesh``; overrides ``device``): each chunk's
+    frames split over the mesh's shards, each encoded on its own stream
+    (``mesh.encode_stages_pcm_spmd``).  The chunk grows with the shard
+    count; a chunk whose frames do not split evenly is padded with
+    silent full frames, whose payloads are dropped.
     """
     cfg = config or EncoderConfig()
     if cfg.force_uncompressed:
@@ -502,12 +528,14 @@ def encode_frames_device(
         # The combined per-sample extra-bits field (A:B interleaved) must
         # fit one u32 plane value; the host AlacEncoder covers ub=3.
         raise ValueError("device encoder supports uncompressed_bytes <= 2")
-    dev = check_device(device)
+    dev = None if mesh is not None else check_device(device)
     enc = AlacEncoder(params, cfg)  # validates params/config like the host
     F = len(frames)
     if F == 0:
         return []
-    step = chunk_frames or CHUNK_FRAMES
+    n_shards = 1 if mesh is None else mesh.size
+    step = chunk_frames or CHUNK_FRAMES * n_shards
+    S = params.max_samples_per_frame
     payloads: list[bytes] = []
 
     # Pack runs on a worker thread: the native packer (ctypes) and the
@@ -524,7 +552,8 @@ def encode_frames_device(
             if item is None:
                 return
             try:
-                payloads.extend(_pack(item[0], item[1], timings))
+                got = _pack(item[0], item[1], timings)
+                payloads.extend(got[: item[0]["real_frames"]])
             except BaseException as e:  # re-raised by the dispatch loop
                 failure.append(e)
                 return
@@ -544,8 +573,14 @@ def encode_frames_device(
     try:
         for lo in range(0, F, step):
             t0 = time.perf_counter()
-            prep = _prep(frames[lo : lo + step], params, cfg, enc)
-            fetch = _dispatch(prep, params, cfg, dev, kernel)  # async
+            chunk = frames[lo : lo + step]
+            real = len(chunk)
+            if real % n_shards:
+                fill = [np.zeros((S, 2), np.int32)] * (n_shards - real % n_shards)
+                chunk = [np.asarray(fr) for fr in chunk] + fill
+            prep = _prep(chunk, params, cfg, enc)
+            prep["real_frames"] = real
+            fetch = _dispatch(prep, params, cfg, dev, kernel, mesh=mesh)  # async
             if timings is not None:
                 timings["prep_s"] = (
                     timings.get("prep_s", 0.0) + time.perf_counter() - t0

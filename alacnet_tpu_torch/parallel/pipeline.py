@@ -1,11 +1,13 @@
 """Host->device decode orchestration: planning, padding, dispatch.
 
 The counterpart of ``alacnet_tpu/parallel/pipeline.py`` for one torch
-device.  Stage 1 parses headers and plans lanes on the host
-(``plan_blob_batches``: NumPy plus the native C++ tier), stage 2 decodes
-on the device (``ops/frame_decode.py``: kernels 1-3 and an elementwise
-epilogue), stage 3 unsorts the PCM on the host.  At most two batches are
-in flight: the host parses batch k+1 while the card decodes batch k.
+device or a mesh of them (``parallel/mesh.py``).  Stage 1 parses
+headers and plans lanes on the host (``plan_blob_batches``: NumPy plus
+the native C++ tier), stage 2 decodes on the device
+(``ops/frame_decode.py``: kernels 1-3 and an elementwise epilogue;
+under a mesh, each shard on its own stream), stage 3 unsorts the PCM on
+the host.  At most two batches are in flight: the host parses batch k+1
+while the card decodes batch k.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..ops.cuda.pack_rows import blob_words, host_row_params, pack_rows
 from ..ops.frame_decode import FrameMetaArrays, decode_frames_packed
 from ..utils.observability import GLOBAL_STATS, trace_span
 from ..utils.transfer import d2h_async, h2d
+from .mesh import Sharded, _shard_rows, decode_frames_spmd, decode_frames_spmd_rows
 
 #: Lane-count buckets (powers of two up to 4096 frames in flight).
 BATCH_BUCKETS = (8, 64, 256, 1024, 2048, 3072, 4096)
@@ -92,13 +95,16 @@ class StagedBatch(NamedTuple):
 
 
 def stage_frame_batch(
-    fb: FrameBatch, config: DecodeConfig, device_rows=None,
+    fb: FrameBatch, config: DecodeConfig, device_rows=None, n_shards: int = 1,
 ) -> StagedBatch:
-    """Host half of :func:`dispatch_frame_batch`: pad the lanes, pick the
-    output dtype, pack the metadata and (``device_rows = (ow, nbytes,
-    W)``) the row parameters."""
+    """Host half of :func:`dispatch_frame_batch`: pad the lanes (to a
+    bucket, then to a multiple of ``n_shards``), pick the output dtype
+    over the padded batch, pack the metadata and (``device_rows = (ow,
+    nbytes, W)``) the row parameters."""
     orig_b = fb.batch
     fb = pad_frame_batch(fb)
+    if fb.batch % n_shards:
+        fb = pad_frame_batch(fb, -(-fb.batch // n_shards) * n_shards)
     emit16 = config.emit16 and bool((fb.sample_size == 16).all())
     meta = FrameMetaArrays.pack_host(fb)
     if device_rows is None:
@@ -110,11 +116,25 @@ def stage_frame_batch(
 
 def launch_frame_batch(
     staged: StagedBatch, max_samples: int, config: DecodeConfig, bwords=None,
+    mesh=None,
 ):
     """Device half of :func:`dispatch_frame_batch`: upload the staged
     batch, cut its rows from ``bwords`` (kernel 1) when it has row
     parameters, and queue the decode; returns (out, n) device tensors
-    without synchronising."""
+    without synchronising.  Under a ``mesh`` (``parallel/mesh.py``) each
+    shard uploads its own slice and decodes it on its stream, and (out,
+    n) are ``mesh.Sharded``; ``bwords`` is then the per-shard tuple of
+    ``Mesh.replicated``."""
+    if mesh is not None:
+        if staged.rows is not None:
+            return decode_frames_spmd_rows(
+                bwords, staged.rows[0], staged.rows[1], staged.W, staged.meta,
+                mesh, max_samples, emit16=staged.emit16, kernel=config.kernel,
+            )
+        return decode_frames_spmd(
+            _shard_rows(staged.words.view(np.int32), mesh), staged.meta, mesh,
+            max_samples, emit16=staged.emit16, kernel=config.kernel,
+        )
     dev = config.torch_device
     if staged.rows is not None:
         rows = h2d(staged.rows, dev)
@@ -128,6 +148,7 @@ def launch_frame_batch(
 
 def dispatch_frame_batch(
     fb: FrameBatch, max_samples: int, config: DecodeConfig, device_rows=None,
+    mesh=None,
 ):
     """Queue one batch's decode; returns device tensors (out, n, orig_b)
     without synchronising.
@@ -136,13 +157,15 @@ def dispatch_frame_batch(
     ``span_batch(idx, device_rows=True)`` plus the device-resident
     ``blob_words`` blob: the word rows are then cut on the device
     (kernel 1) instead of shipped from the host; fb carries an empty
-    (B, 0) words placeholder.
+    (B, 0) words placeholder.  ``mesh``: shard the lanes over it
+    (:func:`launch_frame_batch`).
     """
     bwords = None
     if device_rows is not None:
         bwords, device_rows = device_rows[0], device_rows[1:]
-    staged = stage_frame_batch(fb, config, device_rows)
-    out, n = launch_frame_batch(staged, max_samples, config, bwords)
+    n_shards = 1 if mesh is None else mesh.size
+    staged = stage_frame_batch(fb, config, device_rows, n_shards)
+    out, n = launch_frame_batch(staged, max_samples, config, bwords, mesh)
     return out, n, staged.orig_b
 
 
@@ -314,6 +337,7 @@ def decode_blob(
     strict: bool | None = None,
     sink=None,
     config: DecodeConfig | None = None,
+    mesh=None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Decode frames addressed as (offset, size) into a raw byte blob.
 
@@ -328,14 +352,27 @@ def decode_blob(
     instead of copying PCM to the host.  With a sink the returned
     samples/n are empty; ``status`` is still per-frame in original
     order.
+
+    ``mesh`` (``parallel/mesh.Mesh``; overrides ``config.device``):
+    every batch's lanes split over the mesh's shards, each decoded on
+    its own stream, the blob words replicated once per distinct device.
+    A sink then gets ``mesh.Sharded`` (out, n), each part ready on its
+    shard's stream.
     """
-    config = resolve(config, strict=strict)
+    config = resolve(
+        config, device=None if mesh is None else str(mesh.devices[0]),
+        strict=strict,
+    )
     if batch_limit is None:
         batch_limit = config.batch_limit
     sizes = np.asarray(sizes)
     inv, max_w, spans = blob_spans(blob, offsets, sizes, params, batch_limit, config)
     bwords = None
-    if max_w is not None:
+    if max_w is not None and mesh is not None:
+        bwords = mesh.replicated(
+            lambda d: blob_words(np.asarray(blob), d, max_w=max_w)
+        )
+    elif max_w is not None:
         bwords = blob_words(np.asarray(blob), config.torch_device, max_w=max_w)
     outs, ns, sts = [], [], []
     pending: list = []
@@ -360,11 +397,13 @@ def decode_blob(
     for idx, fb, rows in spans:
         out_d, n_d, orig_b = dispatch_frame_batch(
             fb, max_samples, config,
-            device_rows=None if rows is None else (bwords, *rows),
+            device_rows=None if rows is None else (bwords, *rows), mesh=mesh,
         )
         if sink is not None:
             sink(out_d, n_d, orig_b)
             wait = None
+        elif mesh is not None:
+            wait = _fetch_sharded(out_d, n_d, orig_b)
         else:
             wait = d2h_async(out_d[:orig_b], n_d[:orig_b])
         pending.append(
@@ -394,6 +433,12 @@ def decode_blob(
         np.concatenate(ns)[inv],
         np.concatenate(sts)[inv],
     )
+
+
+def _fetch_sharded(out: Sharded, n: Sharded, orig_b: int):
+    """``d2h_async`` of a mesh batch's first ``orig_b`` lanes."""
+    wo, wn = out.fetch(orig_b), n.fetch(orig_b)
+    return lambda: (wo(), wn())
 
 
 def decode_payloads(

@@ -83,7 +83,34 @@ on failure, each printing its seconds:
    its record goes on a ``bench`` line.  It fails unless ``parity_ok``
    holds, every headline is above 0, the e2e device-busy share is a
    measured number, the trace names the ``rice_lpc`` kernel and each
-   kernel of the bench's paths (all but ``rice_emit``) launched.
+   kernel of the bench's paths (all but ``rice_emit``) launched;
+9. mesh — data parallelism over frames (``parallel/mesh.py``,
+   ``parallel/distributed.py``): the pooled smoke decode through
+   ``decode_streams(mesh=)`` over every visible card and over two shards
+   on the first card (``TWO_SHARDS``: two streams), each against
+   ``expected.json``, with every launch's stream recorded (``_lib.launch``
+   wrapped): under two shards each decode kernel must launch on both shard
+   streams and on no other; ``encode_files(mesh=)`` of each smoke file's
+   PCM over the two shards against ``encode_expected.json`` (both encode
+   kernels on both streams) and ``encode_frames_device(mesh=)`` of a
+   ragged slice of music.m4a's PCM against the single device and the
+   host encoder; every call the two-shard decode and encode made to the
+   five kernel wrappers, recorded with its stream, and the first on each
+   shard stream — then more while the kernel's plain total stays under
+   ``MESH_PLAIN_BUDGET_S`` — run again on that stream through the
+   kernel and the plain version, bit for bit (``mesh_kernel_check``
+   lines); the port's ``dryrun_multichip(2, TWO_SHARDS)``; the
+   distributed decode in worker subprocesses (this script with
+   ``--dist-worker``), world 1 on ``nccl`` and world 2 on ``gloo``, both
+   ranks on the first card, every worker under a timeout, their PCM in
+   rank order against music.m4a's x ``DIST_COPIES`` and the all-reduced
+   total and checksum against it; then ``decode_blob``'s rate to host PCM
+   over the bench's mixed pool without a mesh, over a one-card mesh and
+   over two shards, in turns (``MESH_RATE_RUNS`` each), printed beside the
+   card's name and power limit, with the quartiles of each arm's runs.
+   The ``kernels`` line's ``mesh_launches`` are the two-shard decode's
+   and encode's counts, ``mesh_max_abs_err`` and ``mesh_plain_calls``
+   (calls compared, per shard stream) their kernel checks'.
 
 In the ``kernels`` line, ``ms`` is the kernel's time summed over every
 call the path made (mean of 5 launches each from the host, CUDA
@@ -449,6 +476,22 @@ def time_against_library(kernel, lib, device: bool = False) -> dict:
     return out
 
 
+def max_abs_err(name: str, got, want) -> int:
+    """The largest |kernel - plain| over a call's outputs (each a tensor
+    or a tuple of them); raises where a shape or dtype differs."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise RuntimeError(f"{name}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
+        if g.numel():
+            err = max(err, (g.to(torch.int64) - w.to(torch.int64)).abs().max().item())
+    return err
+
+
 def compare_kernels(calls, fns, groups, budget_s) -> dict:
     """Each recorded call through the kernel, and the first call of
     each group (``groups[name][i]``) — then further calls while the
@@ -500,13 +543,7 @@ def compare_kernels(calls, fns, groups, budget_s) -> dict:
             )
             ms += k_ms
             compared.append(idx)
-            want = plain[0] if isinstance(plain[0], tuple) else (plain[0],)
-            for g, w in zip(got, want):
-                if g.shape != w.shape or g.dtype != w.dtype:
-                    raise RuntimeError(f"{name}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
-                if g.numel():
-                    d = (g.to(torch.int64) - w.to(torch.int64)).abs().max().item()
-                    err = max(err, d)
+            err = max(err, max_abs_err(name, got, plain[0]))
             if err != 0:  # the tolerance: bit for bit
                 raise RuntimeError(f"{name}: kernel differs from plain, max |err| {err}")
         results[name] = {
@@ -569,6 +606,15 @@ def pcm_sha(pcm) -> str:
     return hashlib.sha256(pcm.astype(pcm.dtype.newbyteorder("<")).tobytes()).hexdigest()
 
 
+def check_pooled(results, names, expected, what: str) -> None:
+    """Each pooled result (COPIES per file, in ``names`` order) against
+    expected.json's sha256 and shape."""
+    for i, r in enumerate(results):
+        name = names[i // COPIES]
+        if pcm_sha(r.pcm) != expected[name]["sha256"] or list(r.pcm.shape) != expected[name]["shape"]:
+            raise RuntimeError(f"{what}: PCM of {name} (copy {i % COPIES}) differs from expected.json")
+
+
 def run_e2e(names, data, expected, config, card: str):
     """Phase 3.  Returns the e2e numbers and one decoded copy per file."""
     import torch
@@ -591,10 +637,7 @@ def run_e2e(names, data, expected, config, card: str):
     stats = GLOBAL_STATS.snapshot()
     event_ms = sum(a.elapsed_time(b) for a, b in intervals)
 
-    for i, r in enumerate(results):
-        name = names[i // COPIES]
-        if pcm_sha(r.pcm) != expected[name]["sha256"] or list(r.pcm.shape) != expected[name]["shape"]:
-            raise RuntimeError(f"PCM of {name} (copy {i % COPIES}) differs from expected.json")
+    check_pooled(results, names, expected, "decode_streams")
     missing = [k for k in DECODE_KERNELS if launches.get(k, 0) == 0]
     if missing:
         raise RuntimeError(f"the main path launched no {missing} kernel")
@@ -1037,6 +1080,369 @@ def run_bench() -> dict:
     return {"launches": launches, "trace_bytes": len(trace_text)}
 
 
+#: The two-shard mesh of phase 9: two streams on the first card.
+TWO_SHARDS = ("cuda:0", "cuda:0")
+#: Copies of music.m4a's frames the distributed workers decode between them.
+DIST_COPIES = 5
+#: Seconds a distributed worker may take (its rendezvous times out first).
+DIST_TIMEOUT_S = 240
+DIST_INIT_TIMEOUT_S = 120
+#: The distributed runs of phase 9: (backend, world size); NCCL refuses
+#: two ranks on one card, so the two-rank run uses gloo.
+DIST_RUNS = (("nccl", 1), ("gloo", 2))
+#: Runs of each arm behind phase 9's decode_blob rates, in turns, over
+#: the bench's mixed pool (its 4096-sample frames, run_e2e_benchmark's
+#: 12,288 of them).
+MESH_RATE_RUNS = 9
+MESH_RATE_FRAMES = 3 * 4096
+#: Where the kernel wrappers launch: phase 9 records each launch's stream.
+LAUNCH_SITE = {"launch": ("alacnet_tpu_torch.ops.cuda._lib", "launch")}
+#: Where the two-shard path calls each kernel wrapper: each shard cuts
+#: its own rows in parallel/mesh.py, and decodes and encodes as on one
+#: device.
+MESH_CALL_SITES = {
+    **CALL_SITES, "pack_rows": ("alacnet_tpu_torch.parallel.mesh", "pack_rows"),
+    **ENC_CALL_SITES,
+}
+#: Seconds of plain-version runs each kernel's phase-9 check may spend
+#: past the first call on each shard stream (the plain rice_lpc and
+#: predictor take ~10-13 s a call on the H100, so those two stop there).
+MESH_PLAIN_BUDGET_S = 8.0
+
+
+def stream_recorder(seen):
+    """A ``wrapped`` factory for ``_lib.launch``: counts (kernel, raw
+    stream handle) of every launch."""
+    import torch
+
+    def make(key, orig):
+        def rec(name, device, *args):
+            index = device.index if device.index is not None else torch.cuda.current_device()
+            key = (name.removeprefix("alac_"), torch._C._cuda_getCurrentRawStream(index))
+            seen[key] = seen.get(key, 0) + 1
+            return orig(name, device, *args)
+        return rec
+    return make
+
+
+def shard_recorder(calls):
+    """A ``wrapped`` factory for the kernel wrappers' call sites: appends
+    each call to ``calls[kernel]`` as (args, kwargs, the stream it was
+    queued on)."""
+    import torch
+
+    def make(key, orig):
+        def rec(*args, **kwargs):
+            stream = torch.cuda.current_stream(args[0].device)
+            calls.setdefault(key, []).append((args, kwargs, stream))
+            return orig(*args, **kwargs)
+        return rec
+    return make
+
+
+def compare_shard_calls(calls, fns, streams, budget_s) -> dict:
+    """Phase 9's kernel checks: the calls the two-shard path made
+    (``shard_recorder``), each run again on the shard stream it was
+    queued on, through the kernel and through the plain version, bit for
+    bit: the first call on each shard stream, then further calls while
+    the kernel's plain total stays under ``budget_s``.  Fails unless
+    every kernel was compared on every shard stream."""
+    import torch
+
+    handles = [s.cuda_stream for s in streams]
+    torch.cuda.synchronize()
+    results = {}
+    for name, recorded in calls.items():
+        fn = fns[name]
+        err, plain_ms, compared, shapes = 0, 0.0, [], []
+        by_stream = [0] * len(streams)
+        for idx, (args, kw, stream) in enumerate(recorded):
+            i = handles.index(stream.cuda_stream)
+            if by_stream[i] and plain_ms / 1e3 >= budget_s:
+                continue
+            plain = []
+            with torch.cuda.stream(streams[i]):
+                got = fn(*args, **{**kw, "kernel": "cuda"})
+                plain_ms += cuda_ms(
+                    lambda: plain.append(fn(*args, **{**kw, "kernel": "torch"})), 1
+                )
+                err = max(err, max_abs_err(name, got, plain[0]))
+            by_stream[i] += 1
+            compared.append(idx)
+            shapes.append(list((got if isinstance(got, tuple) else (got,))[0].shape))
+        if err != 0:  # the tolerance: bit for bit
+            raise RuntimeError(f"{name} on a shard stream: kernel differs from plain, "
+                               f"max |err| {err}")
+        if 0 in by_stream:
+            raise RuntimeError(f"{name}: no call compared on a shard stream: {by_stream}")
+        results[name] = {"calls": len(recorded), "compared_calls": compared,
+                         "compared_by_stream": by_stream, "shapes": shapes,
+                         "max_abs_err": err, "plain_ms": plain_ms}
+        emit({"mesh_kernel_check": name, **results[name]})
+    return results
+
+
+def mesh_decode(names, data, expected, mesh, calls) -> dict:
+    """Phase 9's decodes: the pooled smoke corpus through
+    ``decode_streams(mesh=)`` over every visible card and over the two
+    shards of ``mesh``, each against expected.json; under two shards,
+    every decode kernel must launch on both shard streams, and each
+    wrapper call is appended to ``calls`` (``shard_recorder``)."""
+    import torch
+
+    import alacnet_tpu_torch
+    from alacnet_tpu_torch.ops.cuda import _lib
+    from alacnet_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    for label, mesh in (("all_cards", make_mesh()), ("two_shards", mesh)):
+        seen: dict = {}
+        sites = {} if label == "all_cards" else {k: MESH_CALL_SITES[k] for k in DECODE_KERNELS}
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        with wrapped(LAUNCH_SITE, stream_recorder(seen)), \
+                wrapped(sites, shard_recorder(calls)):
+            t0 = time.perf_counter()
+            results = alacnet_tpu_torch.decode_streams(pooled_streams(names, data), mesh=mesh)
+            wall = time.perf_counter() - t0
+        launches = dict(_lib.LAUNCHES)
+        check_pooled(results, names, expected, f"decode_streams({mesh})")
+        del results
+        handles = [s.cuda_stream for s in mesh.streams]
+        by_stream = {k: [seen.get((k, h), 0) for h in handles] for k in DECODE_KERNELS}
+        idle = {k: c for k, c in by_stream.items() if 0 in c}
+        if idle or {h for _, h in seen} - set(handles):
+            raise RuntimeError(f"decode_streams({mesh}): kernels off the shard streams "
+                               f"or idle on one: {by_stream}, {seen}")
+        out[label] = {"mesh": repr(mesh), "wall_s": wall, "launches": launches,
+                      "launches_by_stream": by_stream}
+    return out
+
+
+def mesh_encode(names, decoded, enc_expected, mesh, calls) -> dict:
+    """Phase 9's encodes over the two shards of ``mesh``:
+    ``encode_files(mesh=)`` of each smoke file's PCM against
+    encode_expected.json, each encode wrapper call appended to ``calls``
+    (``shard_recorder``), and ``encode_frames_device(mesh=)`` of a ragged
+    slice (a partial frame, an odd count) against the single device and
+    the host encoder."""
+    import torch
+
+    import alacnet_tpu_torch
+    from alacnet_tpu_torch.codec.encoder_device import encode_frames_device
+    from alacnet_tpu_torch.ops.cuda import _lib
+
+    seen: dict = {}
+    files = [decoded[n] for n in names]
+    outs = [io.BytesIO() for _ in files]
+    sites = {k: MESH_CALL_SITES[k] for k in ENCODE_KERNELS}
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    with wrapped(LAUNCH_SITE, stream_recorder(seen)), wrapped(sites, shard_recorder(calls)):
+        alacnet_tpu_torch.encode_files(
+            [r.pcm for r in files], outs, [r.sample_rate for r in files],
+            [r.bits_per_sample for r in files], mesh=mesh,
+        )
+    launches = dict(_lib.LAUNCHES)
+    for name, o in zip(names, outs):
+        want = enc_expected[f"{name}|default"]
+        if hashlib.sha256(o.getvalue()).hexdigest() != want["sha256"]:
+            raise RuntimeError(f"encode_files(mesh=): {name} differs from encode_expected.json")
+    handles = [s.cuda_stream for s in mesh.streams]
+    by_stream = {k: [seen.get((k, h), 0) for h in handles] for k in ENCODE_KERNELS}
+    if any(0 in c for c in by_stream.values()):
+        raise RuntimeError(f"encode_files(mesh=): an encode kernel idle on a shard: {by_stream}")
+
+    music = decoded["music.m4a"]
+    S = 4096
+    frames = [music.pcm[i : i + S] for i in range(0, music.pcm.shape[0], S)][:11]
+    frames[4] = frames[4][:1234]
+    params = alacnet_tpu_torch.default_cookie(music.sample_rate, 16, 2, S)
+    single = encode_frames_device(frames, params, device=DEVICE)
+    meshed = encode_frames_device(frames, params, mesh=mesh)
+    host = alacnet_tpu_torch.AlacEncoder(params)
+    if meshed != single or single != [host.encode_frame(f) for f in frames]:
+        raise RuntimeError("encode_frames_device(mesh=) differs from the single device "
+                           "or the host encoder on the ragged slice")
+    return {"files": len(files), "launches": launches, "launches_by_stream": by_stream,
+            "ragged_frames": len(frames)}
+
+
+def mesh_rates(card: str) -> dict:
+    """``decode_blob`` to host PCM over the bench's mixed pool (12,288
+    frames, a fresh order each run), without a mesh, over a one-card
+    mesh and over two shards on one card, in turns (the arms' order
+    rotating every round); every run's PCM held against its source.
+    Host clock around each call; medians."""
+    import statistics
+
+    import torch
+
+    from alacnet_tpu_torch import bench_lib
+    from alacnet_tpu_torch.config import DecodeConfig
+    from alacnet_tpu_torch.parallel.mesh import make_mesh
+    from alacnet_tpu_torch.parallel.pipeline import decode_blob
+
+    S, total_frames = 4096, MESH_RATE_FRAMES
+    pool, frames, params = bench_lib._mixed_pool_frames(S, 16)
+    table, lengths = bench_lib._source_table(frames, S)
+    rng = np.random.default_rng(7)
+    config = DecodeConfig(device=DEVICE)
+    arms = {"no_mesh": None, "one_card": make_mesh(TWO_SHARDS[:1]),
+            "two_shards": make_mesh(TWO_SHARDS)}
+    walls = {k: [] for k in arms}
+    samples = None
+    order = list(arms.items())
+    for r in range(MESH_RATE_RUNS + 1):  # the first round warms up
+        for label, mesh in order[r % 3:] + order[: r % 3]:  # each arm first in turn
+            src = rng.permutation(
+                np.repeat(np.arange(len(pool)), -(-total_frames // len(pool)))[:total_frames]
+            )
+            blob, offsets, sizes = bench_lib._blob([pool[i] for i in src])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, n, status = decode_blob(blob, offsets, sizes, params, S, config=config, mesh=mesh)
+            wall = time.perf_counter() - t0
+            if status.any() or not bench_lib._gate_host(out, n, src, table, lengths):
+                raise RuntimeError(f"decode_blob ({label}): PCM differs from the source")
+            samples = int(n.sum())
+            del out
+            if r:
+                walls[label].append(wall)
+    rates = {}
+    for label, w in walls.items():
+        runs = [samples / x / 1e6 for x in w]
+        rates[label] = {"msamples_per_s": samples / statistics.median(w) / 1e6,
+                        "quartiles_msps": statistics.quantiles(runs, n=4)[::2],
+                        "runs_msps": runs}
+    rec = {"frames": total_frames, "samples": samples, "runs": MESH_RATE_RUNS,
+           "rates": rates, "card": card}
+    emit({"mesh_rates": rec})
+    return rec
+
+
+def dist_worker(init: str, world: int, rank: int, backend: str, device: str,
+                out_dir: str) -> int:
+    """One rank of phase 9's distributed decode (``--dist-worker``):
+    music.m4a's frames x DIST_COPIES split by global frame index, this
+    rank's slice decoded on ``device`` through ``decode_frames_global``;
+    writes its PCM and prints the global scalars."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed
+
+    import alacnet_tpu_torch.parallel.distributed as dist
+    from alacnet_tpu_torch.batch import _collect
+    from alacnet_tpu_torch.codec.framemeta_vec import parse_frame_headers_vec
+    from alacnet_tpu_torch.parallel.pipeline import pad_frame_batch
+
+    dist.initialize(init, world, rank, initialization_timeout=DIST_INIT_TIMEOUT_S,
+                    backend=backend)
+    try:
+        mesh = dist.global_mesh([device])
+        info, blob = _collect(io.BytesIO((CORPUS / "music.m4a").read_bytes()))
+        offs = info.tables.frame_file_offsets()
+        sizes = info.tables.frame_byte_sizes
+        payloads = [blob[o : o + s].tobytes() for o, s in zip(offs, sizes)] * DIST_COPIES
+        parts = np.array_split(np.arange(len(payloads)), world)
+        local = [payloads[i] for i in parts[rank]]
+        pad_to = -(-max(len(p) for p in parts) // mesh.local.size) * mesh.local.size
+        fb = pad_frame_batch(parse_frame_headers_vec(local, info.params), pad_to)
+        S = info.params.max_samples_per_frame
+        out, n, total, checksum = dist.decode_frames_global(fb, mesh, S)
+        pcm, n = dist.local_samples(out, n)
+        k = len(local)
+        valid = np.arange(S)[None, :] < n[:k, None]
+        np.save(pathlib.Path(out_dir) / f"rank{rank}.npy", pcm[:k].reshape(-1, 2)[valid.reshape(-1)])
+        print(json.dumps({"rank": rank, "world": world, "backend": backend, "frames": k,
+                          "total": total, "checksum": checksum}), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_distributed(decoded) -> list:
+    """Phase 9's distributed decodes, every run's workers started at
+    once, each with a timeout: the ranks' PCM, in rank order, must equal
+    music.m4a's PCM x DIST_COPIES, and every rank must report its
+    total and checksum."""
+    from alacnet_tpu_torch.parallel.mesh import wrap_int32
+
+    want = np.concatenate([decoded["music.m4a"].pcm] * DIST_COPIES)
+    want_ck = wrap_int32(int(want.astype(np.int64).sum()))
+    records = []
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = []
+        try:
+            for backend, world in DIST_RUNS:
+                d = pathlib.Path(tmp) / f"{backend}{world}"
+                d.mkdir()
+                init = f"127.0.0.1:{free_port()}"
+                procs = [subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-worker", init,
+                     str(world), str(rank), backend, TWO_SHARDS[0], str(d)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                ) for rank in range(world)]
+                runs.append((backend, world, d, procs))
+            deadline = time.monotonic() + DIST_TIMEOUT_S
+            for backend, world, d, procs in runs:
+                for rank, p in enumerate(procs):
+                    try:
+                        text = p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+                    except subprocess.TimeoutExpired:
+                        raise RuntimeError(f"distributed {backend} x{world}: rank {rank} timed out")
+                    if p.returncode != 0:
+                        raise RuntimeError(f"distributed {backend} x{world}: rank {rank} "
+                                           f"exited {p.returncode}:\n{text[-4000:]}")
+                    rec = json.loads(text.strip().splitlines()[-1])
+                    if rec["total"] != want.shape[0] or rec["checksum"] != want_ck:
+                        raise RuntimeError(f"distributed {backend} x{world}: rank {rank} "
+                                           f"scalars {rec}, expected {want.shape[0]}, {want_ck}")
+                    records.append(rec)
+                got = np.concatenate([np.load(d / f"rank{r}.npy") for r in range(world)])
+                if not np.array_equal(got, want):
+                    raise RuntimeError(f"distributed {backend} x{world}: PCM differs")
+                print(f"distributed {backend} x{world}: OK", flush=True)
+        finally:
+            for _, _, _, procs in runs:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+    return records
+
+
+def run_mesh_phase(names, data, decoded, expected, enc_expected, card: str) -> dict:
+    """Phase 9: data parallelism over frames."""
+    import torch
+
+    from alacnet_tpu_torch.parallel.mesh import dryrun_multichip, make_mesh
+
+    mesh, calls = make_mesh(TWO_SHARDS), {}
+    decode = mesh_decode(names, data, expected, mesh, calls)
+    encode = mesh_encode(names, decoded, enc_expected, mesh, calls)
+    fns = {**decode_fns(), **enc_fns()}
+    shard_checks = compare_shard_calls(
+        {k: calls.get(k, []) for k in DECODE_KERNELS + ENCODE_KERNELS}, fns, mesh.streams,
+        MESH_PLAIN_BUDGET_S)
+    del calls
+    torch.cuda.empty_cache()
+    dryrun = dryrun_multichip(2, TWO_SHARDS)
+    distributed = run_distributed(decoded)
+    rates = mesh_rates(card)
+    rec = {"decode": decode, "encode": encode, "dryrun": dryrun,
+           "distributed": distributed, "card": card}
+    emit({"mesh": rec})
+    return {**rec, "rates": rates, "shard_checks": shard_checks}
+
+
 def main() -> int:
     try:
         import torch
@@ -1113,18 +1519,28 @@ def main() -> int:
     time_session_api(decoded, smi)
     emit({"phase": 7, "seconds": time.perf_counter() - t})
 
-    del decoded
     torch.cuda.empty_cache()
     t = time.perf_counter()
     bench = run_bench()
     emit({"phase": 8, "seconds": time.perf_counter() - t,
           "trace_bytes": bench["trace_bytes"]})
 
+    t = time.perf_counter()
+    mesh = run_mesh_phase(names, data, decoded, expected, enc_expected, smi)
+    del decoded
+    emit({"phase": 9, "seconds": time.perf_counter() - t})
+    mesh_launches = {**mesh["decode"]["two_shards"]["launches"], **mesh["encode"]["launches"]}
+    shard_checks = mesh["shard_checks"]
+
     launches = {**e2e["launches"], **enc["launches"], **route["launches"]}
     kernels = [
         {"name": k, "route": "cuda", "source": f"alacnet_tpu_torch/csrc/{k}.cu",
          "replaces": KERNELS[k], "path": KERNEL_PATHS[k], "launches": launches[k],
          "bench_launches": bench["launches"].get(k, 0),
+         "mesh_launches": mesh_launches.get(k, 0),
+         "mesh_max_abs_err": shard_checks[k]["max_abs_err"] if k in shard_checks else None,
+         "mesh_plain_calls": (shard_checks[k]["compared_by_stream"]
+                              if k in shard_checks else None),
          "max_abs_err": checks[k]["max_abs_err"], "calls": checks[k]["calls"],
          "plain_calls": len(checks[k]["compared_calls"]),
          "ms": checks[k]["ms_all_calls"], "device_ms": checks[k].get("device_ms"),
@@ -1143,4 +1559,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), *sys.argv[5:8]))
     sys.exit(main())

@@ -905,3 +905,92 @@ def test_bench_music_on_the_card(cuda):
     assert len(rec["device_runs_s"]) == 2 and rec["dispersion"]["n"] == 2
     assert rec["fused_kernel"] is True
     assert rec["kernel_launches"]["rice_lpc"] > 0 and rec["kernel_launches"]["pack_rows"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The mesh (parallel/mesh.py): two shards on one card, each on its stream.
+# ---------------------------------------------------------------------------
+
+#: Copies of each smoke file in the mesh tests: at 8, each of two shards
+#: gets extra-bits or raw lanes, so every decode kernel runs on both.
+MESH_COPIES = 8
+
+
+def _pooled_smoke(copies):
+    expected = json.loads((SMOKE / "expected.json").read_text())
+    names = sorted(expected)
+    data = {n: (SMOKE / n).read_bytes() for n in names}
+    return expected, names, [io.BytesIO(data[n]) for n in names for _ in range(copies)]
+
+
+def _launch_streams(monkeypatch):
+    """Record (kernel, raw stream handle) of every launch from now on."""
+    import collections
+
+    from alacnet_tpu_torch.ops.cuda import _lib
+
+    seen = collections.Counter()
+    orig = _lib.launch
+
+    def rec(name, device, *args):
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        seen[(name.removeprefix("alac_"), torch._C._cuda_getCurrentRawStream(index))] += 1
+        return orig(name, device, *args)
+
+    monkeypatch.setattr(_lib, "launch", rec)
+    return seen
+
+
+def test_two_shard_mesh_on_one_card_matches_single_device(cuda):
+    """decode_streams and encode_frames_device over two shards on
+    cuda:0 equal the single device (and expected.json), lane for lane
+    and byte for byte."""
+    import hashlib
+
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.codec.encoder_device import encode_frames_device
+    from alacnet_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(["cuda:0", "cuda:0"])
+    expected, names, streams = _pooled_smoke(1)
+    single = at.decode_streams(streams, device="cuda")
+    expected, names, streams = _pooled_smoke(1)
+    meshed = at.decode_streams(streams, mesh=mesh)
+    for name, s, m in zip(names, single, meshed):
+        assert m.pcm.dtype == s.pcm.dtype
+        np.testing.assert_array_equal(m.pcm, s.pcm)
+        le = m.pcm.dtype.newbyteorder("<")
+        assert hashlib.sha256(m.pcm.astype(le).tobytes()).hexdigest() == expected[name]["sha256"]
+    music = next(r for n, r in zip(names, single) if n == "music.m4a")
+    S = 4096
+    frames = [music.pcm[i : i + S] for i in range(0, music.pcm.shape[0], S)][:7]
+    frames[2] = frames[2][:1000]
+    params = at.default_cookie(music.sample_rate, 16, 2)
+    want = encode_frames_device(frames, params, device="cuda")
+    assert encode_frames_device(frames, params, mesh=mesh) == want
+    host = at.AlacEncoder(params)
+    assert want == [host.encode_frame(f) for f in frames]
+
+
+def test_mesh_launches_each_kernel_on_each_shard_stream(cuda, monkeypatch):
+    """Under a two-shard mesh, pack_rows, rice_lpc and bulk_bits launch
+    on both shard streams (and on no other), and the encode kernels on
+    both too."""
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(["cuda:0", "cuda:0"])
+    handles = [s.cuda_stream for s in mesh.streams]
+    assert len(set(handles)) == 2
+    seen = _launch_streams(monkeypatch)
+    _, names, streams = _pooled_smoke(MESH_COPIES)
+    decoded = at.decode_streams(streams, mesh=mesh)
+    for k in ("pack_rows", "rice_lpc", "bulk_bits"):
+        assert all(seen[(k, h)] > 0 for h in handles), (k, seen)
+    assert {h for _, h in seen} == set(handles)
+    seen.clear()
+    music = decoded[names.index("music.m4a") * MESH_COPIES]
+    at.encode_files([music.pcm] * 3, [io.BytesIO() for _ in range(3)],
+                    music.sample_rate, 16, mesh=mesh)
+    for k in ("enc_pred", "enc_rice"):
+        assert all(seen[(k, h)] > 0 for h in handles), (k, seen)

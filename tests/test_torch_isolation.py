@@ -43,6 +43,24 @@ def test_port_imports_no_jax():
     assert res.stdout.strip() == "ok"
 
 
+def test_mesh_and_distributed_import_no_jax():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "import alacnet_tpu_torch.parallel.mesh as m\n"
+        "import alacnet_tpu_torch.parallel.distributed as d\n"
+        "assert m.FRAME_AXIS == 'frames' and d.GlobalMesh._fields[0] == 'local'\n"
+        "rec = m.dryrun_multichip(2, ['cpu', 'cpu'])\n"
+        "assert rec['shards'] == 2 and rec['encoded_frames'] == 5, rec\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'alacnet_tpu')"
+        " and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = _run(["-c", code], cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def _no_ok_line(stdout: str) -> bool:
     for line in stdout.splitlines():
         try:
