@@ -14,7 +14,9 @@ runs on ``--device`` (default ``cuda``, which raises without a card;
 ``cpu`` runs the kernels' plain torch versions); ``encode --host`` runs
 the host encoder instead.  ``--mesh`` (``encode``, ``batch-encode``,
 ``batch-decode``) shards the frames over every visible device of
-``--device``'s type (``parallel/mesh.py``).
+``--device``'s type (``parallel/mesh.py``).  ``--pack`` and ``--quads``
+(``encode``, ``batch-encode``) choose who packs the payload bytes
+(``codec/encoder_device.encode_frames_device``); the bytes are the same.
 """
 
 from __future__ import annotations
@@ -148,7 +150,8 @@ def _cmd_encode(args) -> int:
     t0 = time.perf_counter()
     with open(args.output, "wb") as f:
         encode_m4a(f, pcm, rate, bits, cfg, device=None if args.host else args.device,
-                   mesh=None if args.host else _mesh(args))
+                   mesh=None if args.host else _mesh(args), pack=args.pack,
+                   quads=args.quads)
     dt = time.perf_counter() - t0
     ratio = os.path.getsize(args.output) / max(1, pcm.size * (bits // 8))
     print(f"encoded {pcm.shape[0]} samples in {dt:.3f}s — ratio {ratio:.3f}")
@@ -188,7 +191,8 @@ def _cmd_batch_encode(args) -> int:
     outs = _unique_outputs(args.paths, args.out_dir, ".m4a")
     cfg = EncoderConfig(order=args.order)
     t0 = time.perf_counter()
-    encode_files(pcms, outs, rates, bits_l, cfg, device=args.device, mesh=_mesh(args))
+    encode_files(pcms, outs, rates, bits_l, cfg, device=args.device, mesh=_mesh(args),
+                 pack=args.pack, quads=args.quads)
     dt = time.perf_counter() - t0
     total = sum(p.shape[0] for p in pcms)
     coded = sum(os.path.getsize(o) for o in outs)
@@ -298,6 +302,20 @@ def _mesh_arg(p) -> None:
     )
 
 
+def _pack_args(p) -> None:
+    from .codec.encoder_device import PACK_CHOICES
+
+    p.add_argument(
+        "--pack", choices=PACK_CHOICES, default="host",
+        help="who packs the payload bytes: the host's pair packer (default), "
+        "or the device (scatter or gather); the bytes are the same",
+    )
+    p.add_argument(
+        "--quads", action="store_true",
+        help="pack one field per four samples on the host pair path",
+    )
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="alac-tpu-torch",
@@ -337,6 +355,7 @@ def main(argv: list[str] | None = None) -> int:
         help="encode with the host encoder instead of on --device",
     )
     _mesh_arg(p)
+    _pack_args(p)
     p.set_defaults(fn=_cmd_encode)
 
     p = sub.add_parser(
@@ -349,6 +368,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--bits", type=int, default=0, help="override the WAV bit depth")
     _device_arg(p, "torch device of the encode stages (default cuda)")
     _mesh_arg(p)
+    _pack_args(p)
     p.set_defaults(fn=_cmd_batch_encode)
 
     p = sub.add_parser(

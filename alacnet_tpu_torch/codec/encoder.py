@@ -598,6 +598,8 @@ def encode_m4a(
     device=None,
     kernel: str = "auto",
     mesh=None,
+    pack: str = "host",
+    quads: bool = False,
     **mux_kwargs,
 ) -> CodecParams:
     """Encode a PCM array (num_samples, channels) into a complete .m4a.
@@ -608,7 +610,9 @@ def encode_m4a(
     on the host.  ``kernel`` routes the device stages ("auto", "cuda",
     "torch"; ops/cuda/_lib.py).  ``mesh`` (``parallel/mesh.Mesh``;
     implies the device path and overrides ``device``) splits the frames
-    over its shards.
+    over its shards.  ``pack`` ("host", "scatter", "gather") and
+    ``quads`` choose the device path's packing route
+    (``encoder_device.encode_frames_device``); the bytes are the same.
     """
     pcm = np.asarray(pcm)
     if pcm.ndim == 1:
@@ -629,7 +633,8 @@ def encode_m4a(
         from .encoder_device import encode_frames_device
 
         frames = encode_frames_device(
-            chunks, params, config, device=device, kernel=kernel, mesh=mesh
+            chunks, params, config, device=device, kernel=kernel, mesh=mesh,
+            pack=pack, quads=quads,
         )
     else:
         enc = AlacEncoder(params, config)
@@ -648,6 +653,8 @@ def encode_files(
     device="cuda",
     kernel: str = "auto",
     mesh=None,
+    pack: str = "host",
+    quads: bool = False,
     **mux_kwargs,
 ) -> "list[CodecParams]":
     """Encode many PCM arrays into .m4a files in POOLED device batches —
@@ -669,7 +676,9 @@ def encode_files(
     which the device pipeline does not carry).  ``kernel`` routes the
     device stages.  ``mesh`` (``parallel/mesh.Mesh``; implies the device
     path and overrides ``device``) splits each chunk's frames over its
-    shards.  Returns the per-file CodecParams.
+    shards.  ``pack`` ("host", "scatter", "gather") and ``quads`` choose
+    the device path's packing route (``encode_frames_device``); the
+    bytes are the same.  Returns the per-file CodecParams.
     """
     import os
 
@@ -725,7 +734,8 @@ def encode_files(
             from .encoder_device import encode_frames_device
 
             frames = encode_frames_device(
-                chunks, params, config, device=device, kernel=kernel, mesh=mesh
+                chunks, params, config, device=device, kernel=kernel, mesh=mesh,
+                pack=pack, quads=quads,
             )
         pos = 0
         for j, i in enumerate(idxs):

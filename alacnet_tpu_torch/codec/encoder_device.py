@@ -12,17 +12,24 @@ splits the way decoding does:
            two per-sample automatons, frame-per-lane with stereo
            channels folded into extra lanes (the ``enc_pred`` and
            ``enc_rice`` CUDA kernels on a card, their plain torch
-           versions on the CPU), and the pair merge
-           (ops/encode.merge_pair_chunks);
+           versions on the CPU), the pair merge
+           (ops/encode.merge_pair_chunks) and, with ``quads``, the quad
+           merge (merge_quad_chunks);
   host   — whole-batch packing (the native two-frame pair packer; the
-           classic chunk packer or a Python BitWriter otherwise).
+           classic chunk packer or a Python BitWriter otherwise), or,
+           with ``pack="scatter"``/``"gather"``, the frame bodies packed
+           on the device (ops/encode.pack_frames_device*) and only the
+           header fields ORed in on the host.
 
 Large batches run as a bounded pipeline: the host preps and dispatches
 chunk k+1 while the device runs chunk k and a worker thread packs chunk
 k-1, with at most two chunks queued for the worker.  On a card the PCM
 goes up through pinned memory with ``non_blocking=True``, and the
-planes come back into pinned buffers behind a CUDA event per chunk; the
-worker waits on that event before it reads them.
+planes the route packs first come back into pinned buffers behind a
+CUDA event per chunk; the worker waits on that event before it reads
+them.  Device work the worker itself queues (the quad or pair planes
+after the flags, the fat frames' rows, the device pack) runs on a side
+stream that waits for the chunk's stages (``_Planes.side``).
 
 Output payloads are byte-identical to ``codec/encoder.AlacEncoder`` given
 the same configuration, and to the JAX package's ``encode_frames_tpu``
@@ -31,6 +38,7 @@ the same configuration, and to the JAX package's ``encode_frames_tpu``
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -47,6 +55,8 @@ from .encoder import AlacEncoder, EncoderConfig, levinson_coefs_batch
 #: Frames per device batch in the pipelined path (2*chunk lanes on the
 #: device; 4096-sample frames at 2048 lanes stage ~300 MB of planes).
 CHUNK_FRAMES = 1024
+#: Who packs the payload bytes (``encode_frames_device(pack=)``).
+PACK_CHOICES = ("host", "scatter", "gather")
 
 
 def check_device(device) -> torch.device:
@@ -258,25 +268,140 @@ def _prep(frames, params: CodecParams, cfg: EncoderConfig, enc: AlacEncoder):
     }
 
 
+class _Planes:
+    """A dispatch's planes, still on the device, and their copies back.
+
+    ``planes[i]`` is a device tensor, or under a mesh a ``Sharded`` of
+    (2, f, ...) shards.  The planes in ``eager`` start back to the host
+    at dispatch, on the dispatch's stream, right behind the stages; any
+    other plane crosses only when :meth:`get` first asks for it, so a
+    route copies back only the plane set it packs.  :meth:`get` gives
+    planes in the packers' flat (2F, ...) lane layout (int32 bit
+    patterns as uint32), each copied at most once; calling the object
+    gives every plane.  ``d2h_bytes`` counts every byte copied back.
+    """
+
+    def __init__(self, planes, device: torch.device | None, eager):
+        self.planes = tuple(planes)
+        self.device = device  # None under a mesh
+        self.d2h_bytes = 0
+        self._waits: dict = {}
+        self._host: dict = {}
+        self._stream = None
+        self._ready = None
+        if device is not None and device.type == "cuda":
+            self._ready = torch.cuda.Event()
+            self._ready.record(torch.cuda.current_stream(device))
+        self._queue(eager)
+
+    @contextlib.contextmanager
+    def side(self):
+        """Run the block on the dispatch's device, on a side stream that
+        first waits for the dispatch's stages (a no-op on the CPU and
+        under a mesh, whose shards keep their own streams): the pack
+        worker's device work overlaps the next chunk's stages."""
+        if self._ready is None:
+            yield self.device
+            return
+        with torch.cuda.device(self.device):
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+                self._stream.wait_event(self._ready)
+                for p in self.planes:  # freed only after the side stream's reads
+                    p.record_stream(self._stream)
+            with torch.cuda.stream(self._stream):
+                yield self.device
+
+    def _queue(self, idx) -> None:
+        idx = [i for i in idx if i not in self._waits]
+        if not idx:
+            return
+        if self.device is None:
+            for i in idx:
+                self._waits[i] = self.planes[i].fetch()
+            return
+        wait = d2h_async(*(self.planes[i] for i in idx))
+        for k, i in enumerate(idx):
+            self._waits[i] = lambda wait=wait, k=k: wait()[k]
+
+    def get(self, *idx) -> list:
+        """Planes ``idx`` as host arrays, copying back the ones not yet
+        queued (on the side stream)."""
+        if any(i not in self._waits for i in idx):
+            with self.side():
+                self._queue(idx)
+        for i in idx:
+            if i not in self._host:
+                self._host[i] = self._lane_major(self._waits.pop(i)())
+                self.d2h_bytes += self._host[i].nbytes
+        return [self._host[i] for i in idx]
+
+    def __call__(self) -> list:
+        return self.get(*range(len(self.planes)))
+
+    def _lane_major(self, a: np.ndarray) -> np.ndarray:
+        if self.device is None:  # (2, F, ...) channel-major -> (2F, ...)
+            a = a.reshape(-1, *a.shape[2:])
+        a = np.ascontiguousarray(a)
+        return a.view(np.uint32) if a.dtype == np.int32 else a
+
+    def copy_back(self, *tensors) -> list:
+        """Tensors made on the side stream (one device), as host arrays."""
+        with self.side():
+            out = list(d2h_async(*tensors)())
+        self.d2h_bytes += sum(a.nbytes for a in out)
+        return out
+
+    def rows(self, which, frames: np.ndarray) -> list:
+        """Planes ``which`` at the lanes of ``frames`` (every frame's
+        channel-A row, then every frame's channel-B row), gathered on the
+        device (one ``index_select`` per plane, or per shard under a
+        mesh) before they cross."""
+        if self.device is None:
+            out = [self._lane_major(self.planes[i].select(frames).numpy())
+                   for i in which]
+            self.d2h_bytes += sum(a.nbytes for a in out)
+            return out
+        F = self.planes[0].shape[0] // 2
+        lanes = np.concatenate([frames, F + frames])
+        with self.side() as dev:
+            sel = torch.from_numpy(lanes).to(dev)
+            gathered = [self.planes[i].index_select(0, sel) for i in which]
+        return [self._lane_major(a) for a in self.copy_back(*gathered)]
+
+
 def _dispatch(prep, params: CodecParams, cfg: EncoderConfig, device: torch.device,
-              kernel: str = "auto", pairs: bool | None = None, mesh=None):
+              kernel: str = "auto", pairs: bool | None = None, mesh=None,
+              pack: str = "host", quads: bool = False) -> _Planes:
     """Upload the prepped batch, queue the device stages and the D2H of
-    their planes, and return a callable that waits for the planes and
-    gives them as NumPy arrays in the packers' flat (2F, ...) layout.
+    the planes the route packs first, and return them as a
+    :class:`_Planes`.
 
     ``pairs`` (default: on when the native tier is available, which the
-    pair packer needs) selects the pair-merged planes; a batch with a
-    non-fitting pair re-dispatches the classic per-sample planes through
-    ``prep["_classic_dispatch"]`` (see :func:`_pack_host_pairs`).
-    ``mesh`` (``parallel/mesh.Mesh``; ``device`` is then unused): the
-    frames split over its shards (``mesh.encode_stages_pcm_spmd``), and
-    the host joins the shards' (2, f, ...) planes along the frames.
+    pair packer needs, and ``pack`` is "host") selects the pair-merged
+    planes; a batch with a non-fitting pair re-dispatches the classic
+    per-sample planes through ``prep["_classic_dispatch"]`` (see
+    :func:`_pack_host_pairs`).  ``quads`` adds the quad planes on the
+    pair path, for batches without an extra-bits plane (the packer
+    counts that plane per SAMPLE): only the flags cross at dispatch.
+    ``pack`` "scatter" or "gather" packs the classic planes on the
+    device (:func:`_pack_device`) where the batch has no extra-bits
+    plane and there is no mesh, as the JAX package does; other batches
+    take the host packer.  ``mesh`` (``parallel/mesh.Mesh``; ``device``
+    is then unused): the frames split over its shards
+    (``mesh.encode_stages_pcm_spmd``), and the host joins the shards'
+    (2, f, ...) planes along the frames.
     """
     from ..ops.encode import RiceEncParams, encode_stages_pcm
 
     if pairs is None:
-        pairs = native.available()
+        pairs = native.available() and pack == "host"
     prep["pairs"] = pairs
+    quads = prep["quads"] = bool(quads and pairs and prep["extra_plane"] is None)
+    prep["device_pack"] = (
+        pack if pack != "host" and not pairs and prep["extra_plane"] is None
+        and mesh is None else None
+    )
     if pairs:
         prep["_classic_dispatch"] = lambda: _dispatch(
             prep, params, cfg, device, kernel, pairs=False, mesh=mesh
@@ -299,7 +424,11 @@ def _dispatch(prep, params: CodecParams, cfg: EncoderConfig, device: torch.devic
     ]).astype(np.int32)
     max_order = 0 if order in (0, 31) else order
     stage_args = dict(max_order=max_order, lw=prep["lw"], sh=prep["sh"],
-                      ub8=prep["ub8"], wide=prep["wide"], kernel=kernel, pairs=pairs)
+                      ub8=prep["ub8"], wide=prep["wide"], kernel=kernel, pairs=pairs,
+                      quads=quads)
+    # What crosses at dispatch: the quad route's flags (bits, bad, fat,
+    # qfat), the device pack's (bits, bad), every plane otherwise.
+    eager = (4, 5, 6, 11) if quads else (4, 5) if prep["device_pack"] else range(7 if pairs else 6)
     if mesh is not None:
         from ..parallel.mesh import encode_stages_pcm_spmd
 
@@ -311,10 +440,7 @@ def _dispatch(prep, params: CodecParams, cfg: EncoderConfig, device: torch.devic
                           mult=mult_h, kmask=kmask_h),
             mesh, S, **stage_args,
         )
-        waits = [p.fetch() for p in planes]
-        return lambda: tuple(
-            a.reshape(B, *a.shape[2:]) for a in (w() for w in waits)
-        )
+        return _Planes(planes, None, eager)
     cols_d = h2d(cols, device)
     order_d, quant_d, rss_d, kmod_d, ihist_d, mult_d, kmask_d, ns_d = cols_d
     lp = LpcParams(order=order_d, quant=quant_d, rc=h2d(rc, device), rss=rss_d)
@@ -326,13 +452,15 @@ def _dispatch(prep, params: CodecParams, cfg: EncoderConfig, device: torch.devic
         h2d(prep["stereo_f"].astype(np.uint8), device).to(torch.bool),
         ns_d, lp, rp, S, **stage_args,
     )
-    return d2h_async(*planes)
+    return _Planes(planes, device, eager)
 
 
 def _pack(prep, fetch, timings: dict | None):
     """Assemble payload bytes from a dispatch's planes."""
     if prep.get("pairs"):
         return _pack_host_pairs(prep, fetch, timings)
+    if prep.get("device_pack"):
+        return _pack_device(prep, fetch, timings)
     return _pack_host(prep, fetch, timings)
 
 
@@ -347,11 +475,16 @@ def _fetch_lane_major(fetch):
     return out
 
 
-def _add_timings(timings, t0, t1, nbytes):
+def _add_timings(timings, t0, t1, nbytes, fetch=None, **counts):
+    """Add a chunk's waits, pack time, plane bytes, the bytes its
+    :class:`_Planes` copied back (``d2h_bytes``) and ``counts``."""
     if timings is not None:
         timings["emit_wait_s"] = timings.get("emit_wait_s", 0.0) + t1 - t0
         timings["plane_bytes"] = timings.get("plane_bytes", 0) + nbytes
         timings["pack_s"] = timings.get("pack_s", 0.0) + time.perf_counter() - t1
+        counts["d2h_bytes"] = getattr(fetch, "d2h_bytes", 0)
+        for k, v in counts.items():
+            timings[k] = timings.get(k, 0) + v
 
 
 def _pack_host_pairs(prep, fetch, timings: dict | None):
@@ -363,23 +496,48 @@ def _pack_host_pairs(prep, fetch, timings: dict | None):
     represent it) re-dispatches the batch on the classic per-sample
     chunk planes and packs those instead: correctness never depends on
     the pair layout fitting.
+
+    Under ``prep["quads"]`` only the flags have crossed so far.  When at
+    most half the frames are quad-fat (a quad past 96 bits: adjacent
+    escape symbols), the quad planes cross and the SAME native packer
+    packs them, handed ceil(n/2) as each frame's count (one field per
+    FOUR samples); the quad-fat frames are then repacked from their
+    pair-plane rows (:func:`_repack_fat_frames`).  Otherwise the pair
+    planes cross and pack as without quads.
     """
     t0 = time.perf_counter()
-    ph, pm, pl, pws, bits, bad, fat = _fetch_lane_major(fetch)
+    quads = prep.get("quads")
+    if quads:
+        bits, bad, fat, qfat = fetch.get(4, 5, 6, 11)
+    else:
+        ph, pm, pl, pws, bits, bad, fat = _fetch_lane_major(fetch)
     if bool(fat.any()):
         prep["pairs"] = False
         return _pack_host(prep, prep["_classic_dispatch"](), timings)
     if bool(bad.any()):
         raise RuntimeError("encoder state desync: raw < 0")
-    t1 = time.perf_counter()
     F = prep["F"]
+    frame_fat = np.zeros(F, bool)
+    use_quads = False
+    if quads:
+        frame_fat = qfat[:F] | qfat[F:]
+        # Quads pay only when most frames ride them; a majority-fat
+        # batch (24-bit-like content) packs pairs wholesale.
+        use_quads = int(frame_fat.sum()) <= F // 2
+        ph, pm, pl, pws = fetch.get(*((7, 8, 9, 10) if use_quads else (0, 1, 2, 3)))
+    t1 = time.perf_counter()
     bits = bits.view(np.int32).astype(np.int64)
     total_bits = prep["hbits"] + bits[:F] + bits[F:]
     out_stride = int(total_bits.max()) // 8 + 8 if F else 8
+    # The pair packer's only use of a frame's count is fields =
+    # ceil(count / 2), so ceil(n / 2) packs ceil(n / 4) quad fields.  A
+    # quad-fat frame's row holds -1 widths, which the packer skips: its
+    # bytes are wrong and are replaced by the repack below.
+    ns_eff = (prep["ns_f"] + 1) // 2 if use_quads else prep["ns_f"]
     packed = native.pack_pair_frames_native(
         prep["hv"], prep["hw"], prep["h_off"],
         prep["extra_plane"], prep["extra_w"],
-        ph, pm, pl, pws, prep["ns_f"], prep["stereo_f"].astype(np.uint8),
+        ph, pm, pl, pws, ns_eff, prep["stereo_f"].astype(np.uint8),
         prep["S"], out_stride,
         # Recycled rows: the payload slices below copy out of them
         # before this function returns.
@@ -388,8 +546,102 @@ def _pack_host_pairs(prep, fetch, timings: dict | None):
     if packed is None:
         raise RuntimeError("the native pair packer is unavailable")
     out, end_bits = packed
+    idx = np.flatnonzero(frame_fat) if use_quads else np.zeros(0, np.int64)
+    if idx.size:
+        out[idx], end_bits[idx] = _repack_fat_frames(prep, idx, fetch, out_stride)
     payloads = [out[f, : -(-int(end_bits[f]) // 8)].tobytes() for f in range(F)]
-    _add_timings(timings, t0, t1, ph.nbytes + pm.nbytes + pl.nbytes + pws.nbytes)
+    _add_timings(timings, t0, t1, ph.nbytes + pm.nbytes + pl.nbytes + pws.nbytes,
+                 fetch, quad_chunks=int(use_quads), repacked_frames=int(idx.size))
+    return payloads
+
+
+def _repack_fat_frames(prep, idx: np.ndarray, fetch: _Planes, out_stride: int):
+    """Repack the quad-fat frames ``idx`` from their PAIR-plane rows.
+
+    Only those frames' lanes (channel A and B rows) are gathered on the
+    device and cross, so for the typical few fat frames the extra D2H
+    stays small.  The repack is also what keeps the native packer's
+    -1-width lanes harmless: their rows are overwritten here.  Returns
+    (out (K, out_stride) uint8, end_bits (K,) int64).
+    """
+    ph, pm, pl, pws = fetch.rows((0, 1, 2, 3), idx)
+    h_off = prep["h_off"]
+    hv_parts = [prep["hv"][h_off[f] : h_off[f + 1]] for f in idx]
+    hw_parts = [prep["hw"][h_off[f] : h_off[f + 1]] for f in idx]
+    h_off2 = np.zeros(idx.size + 1, np.int64)
+    np.cumsum([len(p) for p in hv_parts], out=h_off2[1:])
+    packed = native.pack_pair_frames_native(
+        np.concatenate(hv_parts), np.concatenate(hw_parts), h_off2, None, None,
+        ph, pm, pl, pws, prep["ns_f"][idx], prep["stereo_f"][idx].astype(np.uint8),
+        prep["S"], out_stride,
+    )
+    if packed is None:
+        raise RuntimeError("the native pair packer is unavailable")
+    return packed
+
+
+#: Device-packed rows are bucketed to multiples of this many 32-bit
+#: words, as the JAX package buckets them: the row shapes, and so the
+#: allocator's blocks, repeat across chunks.
+_PACK_STRIDE_STEP = 256
+
+
+def _pack_stride(prep, bits: np.ndarray) -> int:
+    """Words a device-packed row needs for the chunk's longest frame
+    (``bits``: the lanes' entropy bit totals, as copied back), rounded
+    up to ``_PACK_STRIDE_STEP``."""
+    F = prep["F"]
+    bits = bits.view(np.int32).astype(np.int64)
+    need = int((prep["hbits"] + bits[:F] + bits[F:]).max()) // 32 + 2 if F else 2
+    return -(-need // _PACK_STRIDE_STEP) * _PACK_STRIDE_STEP
+
+
+def _or_header(row, hv_f, hw_f) -> None:
+    """OR a frame's ragged header fields into its row's zeroed prefix
+    (the device-packed body starts at bit hbits, so header and body bit
+    ranges are disjoint; native ``alac_pack_bits`` and the BitWriter
+    fallback both OR rather than overwrite)."""
+    if native.pack_bits_native(hv_f, hw_f, row, 0) is None:
+        from .bitwriter import BitWriter
+
+        w = BitWriter()
+        for v, wd in zip(hv_f.tolist(), hw_f.tolist()):
+            w.write(int(v), int(wd))
+        hb = np.frombuffer(w.getvalue(), np.uint8)
+        row[: hb.size] |= hb
+
+
+def _pack_device(prep, fetch: _Planes, timings: dict | None):
+    """Device-pack variant of :func:`_pack_host`: the classic planes stay
+    on the device, ``ops/encode.pack_frames_device_scatter`` (``pack=
+    "scatter"``) or ``pack_frames_device`` ("gather") assembles the
+    frame bodies on the pack worker's side stream, only the rows and
+    their end bits cross, and the host ORs the ragged header fields into
+    each row's zeroed prefix and slices the payloads."""
+    from ..ops.encode import pack_frames_device, pack_frames_device_scatter
+
+    t0 = time.perf_counter()
+    bits, bad = fetch.get(4, 5)
+    if bool(bad.any()):
+        raise RuntimeError("encoder state desync: raw < 0")
+    stride_words = _pack_stride(prep, bits)
+    packer = (pack_frames_device_scatter if prep["device_pack"] == "scatter"
+              else pack_frames_device)
+    with fetch.side() as dev:
+        ns, st, hb = h2d(
+            np.stack([prep["ns_f"], prep["stereo_f"], prep["hbits"]]).astype(np.int32),
+            dev,
+        )
+        rows_d, end_d = packer(*fetch.planes[:4], ns, st != 0, hb,
+                               stride_words=stride_words)
+    rows, end_bits = fetch.copy_back(rows_d, end_d)
+    t1 = time.perf_counter()
+    hv, hw, h_off = prep["hv"], prep["hw"], prep["h_off"]
+    payloads = []
+    for f in range(prep["F"]):
+        _or_header(rows[f], hv[h_off[f] : h_off[f + 1]], hw[h_off[f] : h_off[f + 1]])
+        payloads.append(rows[f, : -(-int(end_bits[f]) // 8)].tobytes())
+    _add_timings(timings, t0, t1, rows.nbytes, fetch, device_pack_chunks=1)
     return payloads
 
 
@@ -418,7 +670,7 @@ def _pack_host(prep, fetch, timings: dict | None):
         ]
     else:
         payloads = _pack_py(prep, c0, c1, c2, ws)
-    _add_timings(timings, t0, t1, c0.nbytes + c1.nbytes + c2.nbytes + ws.nbytes)
+    _add_timings(timings, t0, t1, c0.nbytes + c1.nbytes + c2.nbytes + ws.nbytes, fetch)
     return payloads
 
 
@@ -496,6 +748,8 @@ def encode_frames_device(
     device="cuda",
     kernel: str = "auto",
     mesh=None,
+    pack: str = "host",
+    quads: bool = False,
 ) -> list[bytes]:
     """Encode PCM frames in device batches.
 
@@ -520,7 +774,21 @@ def encode_frames_device(
     (``mesh.encode_stages_pcm_spmd``).  The chunk grows with the shard
     count; a chunk whose frames do not split evenly is padded with
     silent full frames, whose payloads are dropped.
+
+    ``pack`` (one of ``PACK_CHOICES``) chooses who assembles the payload
+    bytes: "host" (the native pair packer), or the device, "scatter" or
+    "gather" (``ops/encode.pack_frames_device*``; only the coded rows
+    cross back), for chunks without an extra-bits plane and without a
+    mesh; other chunks take the host's classic packer, as in the JAX
+    package.  ``quads``: on the host pair path, fold adjacent pairs once
+    more and pack one field per four samples where at most half a
+    chunk's frames are quad-fat (those are repacked from their pair
+    rows).  Every route's bytes are the same.  ``timings`` then also
+    counts ``d2h_bytes`` (everything copied back), ``quad_chunks``,
+    ``repacked_frames`` and ``device_pack_chunks``.
     """
+    if pack not in PACK_CHOICES:
+        raise ValueError(f"pack={pack!r}: expected one of {PACK_CHOICES}")
     cfg = config or EncoderConfig()
     if cfg.force_uncompressed:
         raise ValueError("device encoder handles the compressed path only")
@@ -529,6 +797,9 @@ def encode_frames_device(
         # fit one u32 plane value; the host AlacEncoder covers ub=3.
         raise ValueError("device encoder supports uncompressed_bytes <= 2")
     dev = None if mesh is not None else check_device(device)
+    if dev is not None and dev.type == "cuda" and dev.index is None:
+        # The pack worker enters this device: name the caller's current one.
+        dev = torch.device("cuda", torch.cuda.current_device())
     enc = AlacEncoder(params, cfg)  # validates params/config like the host
     F = len(frames)
     if F == 0:
@@ -547,16 +818,22 @@ def encode_frames_device(
     failure: list[BaseException] = []
 
     def pack_worker():
-        while True:
-            item = q.get()
-            if item is None:
-                return
-            try:
-                got = _pack(item[0], item[1], timings)
-                payloads.extend(got[: item[0]["real_frames"]])
-            except BaseException as e:  # re-raised by the dispatch loop
-                failure.append(e)
-                return
+        # Device work from this thread (late copies back, the fat frames'
+        # gather, the device pack, a classic re-dispatch) runs on the
+        # dispatch's device, not on this thread's default one.
+        on_dev = (torch.cuda.device(dev) if dev is not None and dev.type == "cuda"
+                  else contextlib.nullcontext())
+        with on_dev:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                try:
+                    got = _pack(item[0], item[1], timings)
+                    payloads.extend(got[: item[0]["real_frames"]])
+                except BaseException as e:  # re-raised by the dispatch loop
+                    failure.append(e)
+                    return
 
     def enqueue(item):
         while True:
@@ -580,7 +857,8 @@ def encode_frames_device(
                 chunk = [np.asarray(fr) for fr in chunk] + fill
             prep = _prep(chunk, params, cfg, enc)
             prep["real_frames"] = real
-            fetch = _dispatch(prep, params, cfg, dev, kernel, mesh=mesh)  # async
+            fetch = _dispatch(prep, params, cfg, dev, kernel, mesh=mesh,
+                              pack=pack, quads=quads)  # async
             if timings is not None:
                 timings["prep_s"] = (
                     timings.get("prep_s", 0.0) + time.perf_counter() - t0

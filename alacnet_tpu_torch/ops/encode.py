@@ -17,10 +17,15 @@ channels folded into extra lanes, and the elementwise glue around them.
     ``enc_rice`` kernel.
   * :func:`zero_run_lengths` — the zero-run lookahead, a reverse cummin.
   * :func:`merge_pair_chunks` — folds adjacent samples' 96-bit chunks
-    into the native pair packer's planes.
+    into the native pair packer's planes; :func:`merge_quad_chunks`
+    folds adjacent pairs once more.
   * :func:`encode_stages` / :func:`encode_stages_pcm` — the device stage
     of ``codec/encoder_device.py``, routed through the kernel wrappers
     of ``ops/cuda/enc_stages.py``.
+  * :func:`pack_frames_device` / :func:`pack_frames_device_scatter` —
+    whole coded frame bodies assembled on the device from the chunk
+    planes (a gather and a scatter formulation of one prefix-sum
+    problem), so only the coded bytes cross to the host.
 
 Every tensor holds int32 (96-bit chunks as int32 bit patterns: torch has
 few ``uint32`` ops); wraparound follows C# int32 as in ``ops/bitops.py``.
@@ -370,9 +375,29 @@ def merge_pair_chunks(c0, c1, c2, ws):
     return ph, pm, pl, pws, fat
 
 
+def merge_quad_chunks(ph, pm, pl, pws):
+    """Fold ADJACENT PAIRS' <=96-bit fields into one <=96-bit QUAD field:
+    :func:`merge_pair_chunks` applied to its own output, so the host
+    packer writes one field per FOUR samples.  The native pair packer
+    takes the quad planes unchanged when handed ceil(n/2) as each
+    frame's count (codec/encoder_device._pack_host_pairs).
+
+    A quad FITS when its combined width is <= 96 bits (four samples of
+    <= 24 bits on average: 16-bit content without adjacent escapes).  A
+    non-fitting PAIR input (-1 width) poisons its lane too: widths are
+    clamped to 0 for the shifts, and the lane is marked fat.
+
+    Returns (qh, qm, ql (B, ceil(S/4)) int32 bit patterns, qws
+    (B, ceil(S/4)) int8, qfat (B,) bool).
+    """
+    bad_pair = (pws < 0).any(dim=1)
+    qh, qm, ql, qws, qfat = merge_pair_chunks(ph, pm, pl, torch.clamp_min(pws, 0))
+    return qh, qm, ql, qws, qfat | bad_pair
+
+
 def encode_stages(sig, n, lp: LpcParams, rp: RiceEncParams, num_samples: int,
                   max_order: int = MAX_ORDER, kernel: str = "auto",
-                  pairs: bool = False):
+                  pairs: bool = False, quads: bool = False):
     """One-dispatch device encode: residuals -> zero-run lookahead ->
     rice symbols -> merged chunk planes, through the kernel wrappers of
     ``ops/cuda/enc_stages.py`` (``kernel`` routes them: "auto" launches
@@ -383,15 +408,24 @@ def encode_stages(sig, n, lp: LpcParams, rp: RiceEncParams, num_samples: int,
     bits (B,) int32 per-lane entropy-section bit totals, bad (B,) bool).
     ``pairs``: additionally fold adjacent samples via
     :func:`merge_pair_chunks` and return (ph, pm, pl, pws, bits, bad,
-    fat) — the native pair packer's input.
+    fat) — the native pair packer's input.  ``quads`` (requires
+    ``pairs``): also fold adjacent pairs via :func:`merge_quad_chunks`
+    and append (qh, qm, ql, qws (B, ceil(S/4)), qfat (B,)) to the pair
+    tuple.  Every plane stays on the device: the caller copies back
+    the flags first, then only the plane set it packs.
     """
     from .cuda.enc_stages import encode_stages_fused
 
+    if quads and not pairs:
+        raise ValueError("quads requires pairs")
     c0, c1, c2, ws, bits, bad = encode_stages_fused(
         sig, n, lp, rp, num_samples, max_order=max_order, kernel=kernel
     )
     if pairs:
         ph, pm, pl, pws, fat = merge_pair_chunks(c0, c1, c2, ws)
+        if quads:
+            return (ph, pm, pl, pws, bits, bad, fat,
+                    *merge_quad_chunks(ph, pm, pl, pws))
         return ph, pm, pl, pws, bits, bad, fat
     return c0, c1, c2, ws, bits, bad
 
@@ -400,6 +434,7 @@ def encode_stages_pcm(
     pcm, stereo, n, lp: LpcParams, rp: RiceEncParams, num_samples: int,
     max_order: int = MAX_ORDER, lw: int = 0, sh: int = 0, ub8: int = 0,
     wide: bool = False, kernel: str = "auto", pairs: bool = False,
+    quads: bool = False,
 ):
     """:func:`encode_stages` fed raw interleaved PCM.
 
@@ -431,5 +466,151 @@ def encode_stages_pcm(
     )
     return encode_stages(
         sig, n, lp, rp, num_samples, max_order=max_order, kernel=kernel,
-        pairs=pairs,
+        pairs=pairs, quads=quads,
     )
+
+
+# ---------------------------------------------------------------------------
+# Device-side frame packing: the coded BYTES leave the device.
+# ---------------------------------------------------------------------------
+
+
+def pack_frames_device(c0, c1, c2, ws, n, stereo, hbits, stride_words: int,
+                       K: int = 34):
+    """Assemble whole coded frame BODIES on the device from the merged
+    96-bit sample chunks, so the host packer leaves the pipeline and the
+    copy back shrinks from ~13 B/sample of chunk planes to the coded
+    bytes themselves.
+
+    Bit packing is a prefix-sum problem: each output 32-bit word's
+    content depends only on which symbols overlap its bit range.  Three
+    vector phases, no scan over samples:
+
+      1. fold the chunk planes frame-major (channel A's symbols, then
+         B's: the bitstream's order, AlacFile.cs:643,653) and COMPACT
+         away zero-width slots (zero-run-compressed samples emit
+         nothing; without compaction a silence run would starve the
+         bounded gather window below);
+      2. ``ends = hbits + cumsum(widths)``: every symbol's absolute bit
+         range, the body offset by the frame's header bit count so the
+         host can OR the ragged header fields into the zeroed prefix;
+      3. for every output word j: ``searchsorted(ends, 32j)`` finds the
+         first overlapping symbol; OR together the next ``K``
+         candidates' in-window bits (a 32-bit window meets at most
+         32/min_width + 2 <= 34 compacted symbols, each >= 1 bit).
+
+    Inputs: ``c0, c1, c2`` (B, S) int32 bit patterns of right-aligned,
+    masked chunks; ``ws`` (B, S) int8 widths (lane f = channel A of
+    frame f, lane F + f = channel B); ``n`` (F,) valid samples;
+    ``stereo`` (F,) bool; ``hbits`` (F,) int32 header bit counts.
+    Returns (rows (F, stride_words*4) uint8, the big-endian bit stream
+    with the header region zeroed, and end_bits (F,) int32).  Plain
+    torch ops: the JAX package's version is XLA outside any Pallas
+    kernel.
+
+    The extra-bits plane (ub != 0) is NOT packed here; callers keep
+    those frames on the host packer.
+    """
+    a0, a1, a2, starts, ends, end_bits, NS = _pack_fold_compact(
+        c0, c1, c2, ws, n, stereo, hbits
+    )
+    F = ws.shape[0] // 2
+    lo_row = torch.arange(stride_words, dtype=I32, device=ws.device) * 32
+    first = torch.searchsorted(
+        ends, lo_row.expand(F, stride_words).contiguous(), right=True, out_int32=True
+    )
+    lo = lo_row[None, :]
+    hi = lo + 32
+    acc = torch.zeros((F, stride_words), dtype=I32, device=ws.device)
+    for t in range(K):
+        k = first + t
+        kc = torch.clamp_max(k, NS - 1).long()
+        st = starts.gather(1, kc)
+        en = ends.gather(1, kc)
+        win = _win32(a0.gather(1, kc), a1.gather(1, kc), a2.gather(1, kc), en - hi)
+        live = (k < NS) & (st < hi) & (en > lo) & (en > st)
+        acc |= torch.where(live, win, 0)
+    return _rows_be(acc), end_bits
+
+
+def _pack_fold_compact(c0, c1, c2, ws, n, stereo, hbits):
+    """Phases 1-2 shared by the two packers: frame-major channel fold,
+    zero-width compaction, absolute bit ranges.  Returns (a0, a1, a2,
+    starts, ends (F, 2S) int32, end_bits (F,) int32, 2S)."""
+    F, S = ws.shape[0] // 2, ws.shape[1]
+    NS = 2 * S
+    dev = ws.device
+    samp = torch.arange(S, dtype=I32, device=dev)[None, :]
+    mA = samp < n.to(I32)[:, None]
+    mB = mA & stereo.to(torch.bool)[:, None]
+
+    def fold(plane):
+        plane = plane.to(I32)
+        return torch.cat(
+            [torch.where(mA, plane[:F], 0), torch.where(mB, plane[F:], 0)], dim=1
+        )
+
+    ws_f = fold(ws)
+    mask = ws_f > 0
+    # Real symbols move to the front of their row; dropped slots land in
+    # one spare column past the row's end, which is cut off.
+    dest = torch.where(mask, torch.cumsum(mask, dim=1, dtype=I32) - 1, NS).long()
+
+    def compact(plane):
+        out = torch.zeros((F, NS + 1), dtype=I32, device=dev)
+        return out.scatter_(1, dest, plane)[:, :NS]
+
+    cw = compact(ws_f)
+    a0, a1, a2 = (compact(fold(c)) for c in (c0, c1, c2))
+    ends = (hbits.to(I32)[:, None] + torch.cumsum(cw, dim=1, dtype=I32)).contiguous()
+    starts = ends - cw
+    return a0, a1, a2, starts, ends, ends[:, -1], NS
+
+
+def _win32(v0, v1, v2, s):
+    """The 32-bit window of the 96-bit value v0:v1:v2 whose LSB sits
+    ``s`` bits above the value's LSB (s >= 0: the field extends past the
+    window; s < 0: the field ends -s bits inside it)."""
+    sr = torch.clamp_min(s, 0)
+    right = torch.where(
+        sr < 32,
+        _shr_s(v2, sr) | _shl_s(v1, 32 - sr),
+        torch.where(
+            sr < 64,
+            _shr_s(v1, sr - 32) | _shl_s(v0, 64 - sr),
+            _shr_s(v0, torch.clamp_max(sr - 64, 32)),
+        ),
+    )
+    left = _shl_s(v2, torch.clamp_min(-s, 0))
+    return torch.where(s >= 0, right, left)
+
+
+def _rows_be(acc):
+    """(F, W) int32 words -> (F, W*4) uint8 big-endian stream bytes."""
+    F, W = acc.shape
+    be = lsr(acc, 24) | (lsr(acc, 8) & 0xFF00) | ((acc << 8) & 0xFF0000) | (acc << 24)
+    return be.contiguous().view(torch.uint8).reshape(F, W * 4)
+
+
+def pack_frames_device_scatter(c0, c1, c2, ws, n, stereo, hbits,
+                               stride_words: int):
+    """Scatter-add formulation of :func:`pack_frames_device`, same
+    inputs and outputs: instead of each output word GATHERING its <= K
+    overlapping symbols, each symbol SCATTERS its <= 4 word contributions
+    (a <= 81-bit chunk spans at most ceil((81+31)/32) = 4 words).
+    Contributions to a shared word occupy disjoint bit ranges, so an
+    int32 scatter-add is exactly bitwise OR (no carry, so no overflow);
+    dead contributions, and any word past ``stride_words``, add 0 into
+    one spare column that is cut off."""
+    a0, a1, a2, starts, ends, end_bits, NS = _pack_fold_compact(
+        c0, c1, c2, ws, n, stereo, hbits
+    )
+    F = ws.shape[0] // 2
+    j0 = starts >> 5
+    acc = torch.zeros((F, stride_words + 1), dtype=I32, device=ws.device)
+    for t in range(4):
+        j = j0 + t
+        live = (ends > starts) & (j * 32 < ends) & (j < stride_words)
+        val = torch.where(live, _win32(a0, a1, a2, ends - (j * 32 + 32)), 0)
+        acc.scatter_add_(1, torch.where(live, j, stride_words).long(), val)
+    return _rows_be(acc[:, :stride_words]), end_bits

@@ -177,6 +177,22 @@ class Sharded(NamedTuple):
         """The first ``limit`` lanes (default all) as one host array."""
         return self.fetch(limit)()
 
+    def select(self, index: np.ndarray) -> "Sharded":
+        """The entries at the sorted global positions ``index`` along
+        ``axis``: one ``index_select`` per shard that holds any, on its
+        device and stream (shards holding none drop out)."""
+        parts, streams, lo = [], [], 0
+        for part, s in zip(self.parts, self.streams):
+            size = part.shape[self.axis]
+            local = index[(index >= lo) & (index < lo + size)] - lo
+            lo += size
+            if local.size:
+                with _on(s):
+                    sel = torch.from_numpy(local.astype(np.int64)).to(part.device)
+                    parts.append(part.index_select(self.axis, sel))
+                streams.append(s)
+        return Sharded(tuple(parts), tuple(streams), self.axis)
+
 
 def _on(stream):
     return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
@@ -314,7 +330,7 @@ def decode_frames_sharded(fb, mesh: Mesh, num_samples: int, kernel: str = "auto"
 def encode_stages_pcm_spmd(
     pcm, stereo, n, lp: LpcParams, rp: RiceEncParams, mesh: Mesh,
     num_samples: int, max_order: int, lw: int, sh: int, ub8: int, wide: bool,
-    kernel: str = "auto", pairs: bool = False,
+    kernel: str = "auto", pairs: bool = False, quads: bool = False,
 ) -> tuple[Sharded, ...]:
     """``ops/encode.encode_stages_pcm`` over a frame-sharded mesh.
 
@@ -324,9 +340,10 @@ def encode_stages_pcm_spmd(
     takes frames [i*f, (i+1)*f) and folds only its own channels, so its
     lane parameters travel as the (2, f) channel-major slice and its
     outputs come back as (2, f, ...).  Returns each output of
-    ``encode_stages_pcm`` (six, or seven under ``pairs``) as a
-    :class:`Sharded` on axis 1: concatenated, the global (2, F, ...)
-    array, which reshapes for free to the packers' (2F, ...) layout.
+    ``encode_stages_pcm`` (six, seven under ``pairs``, twelve under
+    ``pairs`` and ``quads``) as a :class:`Sharded` on axis 1:
+    concatenated, the global (2, F, ...) array, which reshapes for free
+    to the packers' (2F, ...) layout.
     """
     F = pcm.shape[0]
     f = mesh.lanes(F)
@@ -354,7 +371,7 @@ def encode_stages_pcm_spmd(
                 RiceEncParams(rss=rrss, kmod=kmod, init_history=ihist,
                               mult=mult, kmask=kmask),
                 num_samples, max_order=max_order, lw=lw, sh=sh, ub8=ub8,
-                wide=wide, kernel=kernel, pairs=pairs,
+                wide=wide, kernel=kernel, pairs=pairs, quads=quads,
             )
             outs.append([p.reshape(2, f, *p.shape[1:]) for p in planes])
     return tuple(

@@ -35,7 +35,9 @@ def d2h_async(*tensors: torch.Tensor):
     Returns a callable that waits for the copies and gives the NumPy
     arrays.  On CUDA the copies are queued now, on the current stream,
     into pinned buffers, so they run right after the work that made the
-    tensors and not after whatever is queued later.
+    tensors and not after whatever is queued later; the event that
+    :func:`wait` waits for is recorded on that same stream, the tensors'
+    device's, whatever the calling thread's current device is.
     """
     if not tensors or not tensors[0].is_cuda:
         return lambda: tuple(t.numpy() for t in tensors)
@@ -45,7 +47,7 @@ def d2h_async(*tensors: torch.Tensor):
         h.copy_(t, non_blocking=True)
         hosts.append(h)
     done = torch.cuda.Event()
-    done.record()
+    done.record(torch.cuda.current_stream(tensors[0].device))
 
     def wait():
         done.synchronize()

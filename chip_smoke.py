@@ -110,7 +110,25 @@ on failure, each printing its seconds:
    card's name and power limit, with the quartiles of each arm's runs.
    The ``kernels`` line's ``mesh_launches`` are the two-shard decode's
    and encode's counts, ``mesh_max_abs_err`` and ``mesh_plain_calls``
-   (calls compared, per shard stream) their kernel checks'.
+   (calls compared, per shard stream) their kernel checks';
+10. encoder routes — phase 4's pooled ``encode_files(device="cuda")``
+   run on each packing route (``ROUTES``: the default host pair pack,
+   ``pack="scatter"``, ``pack="gather"``, ``quads=True``), first one
+   checked round (every output's sha256 against ``encode_expected.json``,
+   ``enc_pred`` and ``enc_rice`` launched, every chunk device-packed on
+   the device routes, some chunk on quads), then ``ROUTE_RUNS`` timed
+   rounds in turns, the order rotating; hires24 and fat24 with
+   ``EncoderConfig(uncompressed_bytes=1)`` under ``pack="scatter"`` (the
+   host packer, their hashes); seven 16-bit music frames and one of
+   full-range noise with quads (a minority repacked, equal to the host
+   ``AlacEncoder``); then one 1,024-frame chunk of music.m4a's PCM: the
+   gather and scatter packs and the quad fold timed by CUDA events,
+   every route's bytes against the host packer's, and what each route
+   copies back.  It prints the chunks on quads, the frames repacked,
+   each route's rate (median of the timed rounds) over the pair
+   route's, and the D2H bytes per sample, beside the card's name and
+   power limit.  The ``kernels`` line's ``route_launches`` are each
+   route's checked-run counts.
 
 In the ``kernels`` line, ``ms`` is the kernel's time summed over every
 call the path made (mean of 5 launches each from the host, CUDA
@@ -663,16 +681,16 @@ def run_e2e(names, data, expected, config, card: str):
     return e2e, decoded
 
 
-def encode_pooled(decoded, names, config) -> list[bytes]:
-    """``encode_files(device="cuda")`` on each file's PCM, COPIES times
-    over, pooled; the output bytes in input order."""
+def encode_pooled(decoded, names, config, **route) -> list[bytes]:
+    """``encode_files(device="cuda", **route)`` on each file's PCM,
+    COPIES times over, pooled; the output bytes in input order."""
     import alacnet_tpu_torch
 
     files = [decoded[n] for n in names for _ in range(COPIES)]
     outs = [io.BytesIO() for _ in files]
     alacnet_tpu_torch.encode_files(
         [r.pcm for r in files], outs, [r.sample_rate for r in files],
-        [r.bits_per_sample for r in files], config=config, device=DEVICE,
+        [r.bits_per_sample for r in files], config=config, device=DEVICE, **route,
     )
     return [o.getvalue() for o in outs]
 
@@ -763,18 +781,23 @@ def enc_fns() -> dict:
     }
 
 
+def check_hashes(datas, names, cfg_name, enc_expected, what: str) -> None:
+    """Every pooled output (COPIES per file) against encode_expected.json."""
+    for i, d in enumerate(datas):
+        name = names[i // COPIES]
+        want = enc_expected[f"{name}|{cfg_name}"]
+        if len(d) != want["bytes"] or hashlib.sha256(d).hexdigest() != want["sha256"]:
+            raise RuntimeError(f"{what}{name} ({cfg_name}, copy {i % COPIES}) differs "
+                               "from encode_expected.json")
+
+
 def check_encoded(datas, names, decoded, cfg_name, config, enc_expected, expected):
     """Every output against encode_expected.json; one copy per file
     against the port's host encoder; every output decoded on the card
     back to expected.json's PCM."""
     import alacnet_tpu_torch
 
-    for i, d in enumerate(datas):
-        name = names[i // COPIES]
-        want = enc_expected[f"{name}|{cfg_name}"]
-        if len(d) != want["bytes"] or hashlib.sha256(d).hexdigest() != want["sha256"]:
-            raise RuntimeError(f"{name} ({cfg_name}, copy {i % COPIES}) differs "
-                               "from encode_expected.json")
+    check_hashes(datas, names, cfg_name, enc_expected, "")
     for j, name in enumerate(names):
         r = decoded[name]
         out = io.BytesIO()
@@ -1064,11 +1087,14 @@ def run_bench() -> dict:
         "value": rec["value"], "e2e_sink_msamples_per_s": rec["e2e_sink_msamples_per_s"],
         "e2e_stage_bound_msps": rec["e2e_stage_bound_msps"],
         **{f"device_msps_by_kind.{k}": v for k, v in rec["device_msps_by_kind"].items()},
-        **{k: rec[k] for k in ("encode_msps", "encode_wall_msps", "encode_device_msps")},
+        **{k: rec[k] for k in ("encode_msps", "encode_wall_msps", "encode_device_msps",
+                               "encode_devpack_device_msps", "encode_devpack_scatter_msps")},
     }
     low = {k: v for k, v in headlines.items() if not (isinstance(v, float) and v > 0)}
     if low or len(rec["device_msps_by_kind"]) != len(bench_lib.CORPUS_KINDS):
         raise RuntimeError(f"bench headlines not above 0: {low}")
+    if "encode_devpack_error" in rec:
+        raise RuntimeError(f"the bench's device pack failed: {rec['encode_devpack_error']}")
     busy = rec["e2e_device_busy_share"]
     if not (isinstance(busy, float) and busy > 0):
         raise RuntimeError(f"the e2e device-busy share is not measured: {busy!r}")
@@ -1443,6 +1469,204 @@ def run_mesh_phase(names, data, decoded, expected, enc_expected, card: str) -> d
     return {**rec, "rates": rates, "shard_checks": shard_checks}
 
 
+#: Phase 10's encoder routes, each run through the pooled encode_files.
+ROUTES = {"pair": {}, "scatter": {"pack": "scatter"}, "gather": {"pack": "gather"},
+          "quads": {"quads": True}}
+#: Timed rounds of phase 10 (each route once a round, the order rotating),
+#: after one checked round.
+ROUTE_RUNS = 3
+#: Frames of phase 10's one-chunk pack timing (the pipeline's chunk).
+PACK_CHUNK_FRAMES = 1024
+
+
+def route_run(decoded, names, config, route: dict) -> tuple:
+    """One pooled ``encode_files`` run on ``route``: (outputs, wall s,
+    launches, timings summed over its chunks, chunks packed)."""
+    import torch
+
+    from alacnet_tpu_torch.ops.cuda import _lib
+
+    timings: dict = {}
+    chunks = [0]
+
+    def with_timings(key, orig):
+        def run(*args, **kwargs):
+            return orig(*args, **{**kwargs, "timings": timings})
+        return run
+
+    def count(key, orig):
+        def run(*args, **kwargs):
+            chunks[0] += 1
+            return orig(*args, **kwargs)
+        return run
+
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    with wrapped(ENCODE_DEVICE, with_timings), wrapped(ENC_PACK, count):
+        t0 = time.perf_counter()
+        datas = encode_pooled(decoded, names, config, **route)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return datas, wall, dict(_lib.LAUNCHES), timings, chunks[0]
+
+
+def check_route(label, route, datas, launches, timings, chunks, cfg_name, names,
+                enc_expected) -> None:
+    """A route run's outputs against encode_expected.json, its encode
+    kernels launched, and its chunks packed the way the route says."""
+    check_hashes(datas, names, cfg_name, enc_expected, f"route {label}: ")
+    idle = [k for k in ENCODE_KERNELS if launches.get(k, 0) == 0]
+    if idle:
+        raise RuntimeError(f"route {label} launched no {idle} kernel: {launches}")
+    devpack = timings.get("device_pack_chunks", 0)
+    want = chunks if "pack" in route and cfg_name == "default" else 0
+    if devpack != want:
+        raise RuntimeError(f"route {label} ({cfg_name}): {devpack} device-packed chunks "
+                           f"of {chunks}, expected {want}")
+    if "quads" in route and not timings.get("quad_chunks"):
+        raise RuntimeError(f"route {label}: no chunk took quads: {timings}")
+
+
+def time_pack_chunk(decoded) -> dict:
+    """The device packers' and the quad fold's time (CUDA events around
+    5 calls after a warm-up) for one PACK_CHUNK_FRAMES-frame chunk of
+    music.m4a's PCM, tiled; each route's bytes for that chunk against
+    the host packer's, and what each copies back."""
+    import torch
+
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.codec import encoder_device as ed
+    from alacnet_tpu_torch.ops.encode import (
+        merge_quad_chunks, pack_frames_device, pack_frames_device_scatter,
+    )
+
+    music = decoded["music.m4a"]
+    S = 4096
+    reps = -(-PACK_CHUNK_FRAMES * S // music.pcm.shape[0])
+    frames = np.tile(music.pcm, (reps, 1))[: PACK_CHUNK_FRAMES * S].reshape(-1, S, 2)
+    params = at.default_cookie(music.sample_rate, 16, 2, S)
+    cfg = at.EncoderConfig()
+    prep = ed._prep(frames, params, cfg, at.AlacEncoder(params, cfg))
+    dev = torch.device(DEVICE)
+    F = prep["F"]
+    fetch = ed._dispatch(prep, params, cfg, dev, pack="scatter")
+    stride = ed._pack_stride(prep, fetch.get(4)[0])
+    cols = torch.from_numpy(
+        np.stack([prep["ns_f"], prep["stereo_f"], prep["hbits"]]).astype(np.int32)).to(dev)
+    args = (*fetch.planes[:4], cols[0], cols[1] != 0, cols[2])
+    pairs = ed._dispatch(prep, params, cfg, dev, pairs=True, quads=True)
+    fns = {
+        "gather": lambda: pack_frames_device(*args, stride_words=stride),
+        "scatter": lambda: pack_frames_device_scatter(*args, stride_words=stride),
+        "quad_fold": lambda: merge_quad_chunks(*pairs.planes[:4]),
+    }
+    out = {"frames": F, "samples": F * S, "stride_words": stride}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = cuda_ms(fn, 5)
+    want = ed._pack_host(prep, ed._dispatch(prep, params, cfg, dev, pairs=False), None)
+    for impl in ("scatter", "gather"):
+        f2 = ed._dispatch(prep, params, cfg, dev, pack=impl)
+        if ed._pack_device(prep, f2, None) != want:
+            raise RuntimeError(f"the {impl} pack of the timed chunk differs from the host's")
+        out[f"{impl}_d2h_bytes"] = f2.d2h_bytes
+    f2 = ed._dispatch(prep, params, cfg, dev, pairs=True, quads=True)
+    if ed._pack(prep, f2, None) != want:
+        raise RuntimeError("the quad pack of the timed chunk differs from the host's")
+    out["quads_d2h_bytes"] = f2.d2h_bytes
+    f2 = ed._dispatch(prep, params, cfg, dev)
+    ed._pack(prep, f2, None)
+    out["pair_d2h_bytes"] = f2.d2h_bytes
+    for k in ("pair", "quads", "scatter", "gather"):
+        out[f"{k}_d2h_bytes_per_sample"] = out[f"{k}_d2h_bytes"] / (F * S)
+    return out
+
+
+def quad_repack_batch(card: str) -> dict:
+    """Seven frames of 16-bit music and one of full-range noise, encoded
+    with quads on the card: a minority of frames is quad-fat and is
+    repacked, and the bytes equal the port's host AlacEncoder's."""
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.bench_lib import _music_pcm
+    from alacnet_tpu_torch.codec.encoder_device import encode_frames_device
+
+    S = 4096
+    rng = np.random.default_rng(5)
+    frames = list(_music_pcm(7 * S, 16, 2, rng).reshape(7, S, 2))
+    frames.append(rng.integers(-32768, 32767, (S, 2)).astype(np.int32))
+    params = at.default_cookie(44100, 16, 2, S)
+    cfg = at.EncoderConfig(order=6)
+    timings: dict = {}
+    got = encode_frames_device(frames, params, cfg, timings=timings, device=DEVICE,
+                               quads=True)
+    host = at.AlacEncoder(params, cfg)
+    if got != [host.encode_frame(f) for f in frames]:
+        raise RuntimeError("the quad route's music + noise batch differs from the host encoder")
+    repacked = timings.get("repacked_frames", 0)
+    if timings.get("quad_chunks") != 1 or not 0 < repacked <= len(frames) // 2:
+        raise RuntimeError(f"the music + noise batch took no minority repack: {timings}")
+    return {"frames": len(frames), "quad_chunks": timings["quad_chunks"],
+            "repacked_frames": repacked, "d2h_bytes": timings["d2h_bytes"]}
+
+
+def run_encoder_routes(decoded, names, enc_expected, card: str) -> dict:
+    """Phase 10: the encoder's packing routes on the card."""
+    import statistics
+
+    import alacnet_tpu_torch
+
+    config = alacnet_tpu_torch.EncoderConfig()
+    samples = sum(decoded[n].pcm.shape[0] for n in names) * COPIES
+    walls = {k: [] for k in ROUTES}
+    stage_s = {k: {s: [] for s in ("prep_s", "emit_wait_s", "pack_s")} for k in ROUTES}
+    launches, route_timings = {}, {}
+    order = list(ROUTES.items())
+    for r in range(ROUTE_RUNS + 1):  # round 0 is checked, the rest timed
+        for label, route in order[r % len(order):] + order[: r % len(order)]:
+            datas, wall, runs_launches, timings, chunks = route_run(
+                decoded, names, config, route)
+            if r == 0:
+                check_route(label, route, datas, runs_launches, timings, chunks, "default",
+                            names, enc_expected)
+                launches[label] = {k: runs_launches.get(k, 0) for k in ENCODE_KERNELS}
+                route_timings[label] = {
+                    "chunks": chunks, "d2h_bytes_per_sample": timings["d2h_bytes"] / samples,
+                    **{k: timings.get(k, 0) for k in (
+                        "quad_chunks", "repacked_frames", "device_pack_chunks")},
+                }
+            else:
+                walls[label].append(wall)
+                for k, v in stage_s[label].items():
+                    v.append(timings.get(k, 0.0))
+            del datas
+    for label, per in stage_s.items():  # medians over the timed rounds
+        route_timings[label].update({k: statistics.median(v) for k, v in per.items()})
+    rates = {}
+    for label, w in walls.items():
+        runs = [samples / x / 1e6 for x in w]
+        rates[label] = {"msamples_per_s": samples / statistics.median(w) / 1e6,
+                        "runs_msps": runs}
+    for label in ROUTES:
+        rates[label]["over_pair"] = (rates[label]["msamples_per_s"]
+                                     / rates["pair"]["msamples_per_s"])
+    # The extra-bits plane under a device-pack request: the host packer.
+    ub1 = alacnet_tpu_torch.EncoderConfig(uncompressed_bytes=1)
+    datas, _, ub1_launches, timings, chunks = route_run(decoded, UB1_FILES, ub1,
+                                                       ROUTES["scatter"])
+    check_route("scatter", ROUTES["scatter"], datas, ub1_launches, timings, chunks, "ub1",
+                UB1_FILES, enc_expected)
+    del datas
+    rec = {"samples": samples, "runs": ROUTE_RUNS, "rates": rates, "routes": route_timings,
+           "launches": launches,
+           "ub1_scatter": {"chunks": chunks, "device_pack_chunks": 0,
+                           "launches": {k: ub1_launches.get(k, 0) for k in ENCODE_KERNELS}},
+           "repack": quad_repack_batch(card), "pack_chunk": time_pack_chunk(decoded),
+           "card": card}
+    emit({"encoder_routes": rec})
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -1527,8 +1751,12 @@ def main() -> int:
 
     t = time.perf_counter()
     mesh = run_mesh_phase(names, data, decoded, expected, enc_expected, smi)
-    del decoded
     emit({"phase": 9, "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    routes = run_encoder_routes(decoded, names, enc_expected, smi)
+    del decoded
+    emit({"phase": 10, "seconds": time.perf_counter() - t})
     mesh_launches = {**mesh["decode"]["two_shards"]["launches"], **mesh["encode"]["launches"]}
     shard_checks = mesh["shard_checks"]
 
@@ -1538,6 +1766,8 @@ def main() -> int:
          "replaces": KERNELS[k], "path": KERNEL_PATHS[k], "launches": launches[k],
          "bench_launches": bench["launches"].get(k, 0),
          "mesh_launches": mesh_launches.get(k, 0),
+         "route_launches": ({r: n[k] for r, n in routes["launches"].items()}
+                            if k in ENCODE_KERNELS else None),
          "mesh_max_abs_err": shard_checks[k]["max_abs_err"] if k in shard_checks else None,
          "mesh_plain_calls": (shard_checks[k]["compared_by_stream"]
                               if k in shard_checks else None),

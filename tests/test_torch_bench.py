@@ -112,6 +112,42 @@ def test_run_encode_benchmark_on_the_cpu():
         assert rec[key] > 0, key
     assert len(rec["encode_wall_runs_msps"]) == bench_lib.MIN_REPEATS
     assert 0 < rec["encode_ratio"] < 1
+    # Quads are off by default; the device pack rides along, its
+    # payloads inside parity_ok.
+    assert rec["encode_pack_quads"] is False
+    assert "encode_devpack_error" not in rec
+    assert rec["encode_devpack_host_msps"] > 0
+    assert len(rec["encode_devpack_host_runs_s"]) == bench_lib.MIN_REPEATS
+    # 4 frames of S samples: rows of 256 words (1 KiB) and 4-byte end bits.
+    assert rec["encode_devpack_stride_words"] == 256
+    assert rec["encode_devpack_d2h_bytes_per_sample"] == 4 * (1024 + 4) / (4 * S)
+
+
+def test_run_encode_benchmark_with_quads_on_the_cpu():
+    rec = bench_lib.run_encode_benchmark(num_frames=4, frame_samples=S, device="cpu",
+                                         quads=True)
+    _check_cpu_record(rec, "run_encode_benchmark")
+    assert rec["encode_pack_quads"] is True and rec["encode_pack_pairs"] is True
+    assert rec["encode_pack_quad_fat_frames"] == 0
+    assert "encode_devpack_error" not in rec
+
+
+@pytest.mark.parametrize("impl", ["pack_frames_device", "pack_frames_device_scatter"])
+def test_encode_gate_holds_the_device_pack(impl, monkeypatch):
+    """A wrong byte from either device packer fails ``parity_ok``; it is
+    not recorded as an ``encode_devpack_error``."""
+    from alacnet_tpu_torch.ops import encode
+
+    real = getattr(encode, impl)
+
+    def corrupt(*args, **kw):
+        rows, end_bits = real(*args, **kw)
+        rows[0, -(-int(end_bits[0]) // 8) - 1] ^= 1
+        return rows, end_bits
+
+    monkeypatch.setattr(encode, impl, corrupt)
+    rec = bench_lib.run_encode_benchmark(num_frames=2, frame_samples=64, device="cpu")
+    assert rec["parity_ok"] is False and "encode_devpack_error" not in rec
 
 
 def test_bench_on_cuda_raises_without_a_card():

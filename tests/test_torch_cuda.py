@@ -994,3 +994,143 @@ def test_mesh_launches_each_kernel_on_each_shard_stream(cuda, monkeypatch):
                     music.sample_rate, 16, mesh=mesh)
     for k in ("enc_pred", "enc_rice"):
         assert all(seen[(k, h)] > 0 for h in handles), (k, seen)
+
+
+# ---------------------------------------------------------------------------
+# The encoder's packing routes: the device packers and quad packing.
+# ---------------------------------------------------------------------------
+
+
+def pack_planes(rng):
+    """The JAX package's adversarial chunk planes for the device packers
+    (tests/test_encoder_tpu.py), as numpy: ((c0, c1, c2) uint32, ws
+    int8), n, stereo, hbits.  Dense 1-bit runs (33+ symbols in one
+    32-bit word, the K = 34 gather window's worst case), 81-bit chunks
+    spanning words, zero-width gaps, mono and partial frames."""
+    F, S2 = 6, 160
+    n = np.array([160, 160, 97, 160, 1, 160], np.int32)
+    stereo = np.array([1, 1, 0, 1, 1, 0], bool)
+    hbits = np.array([61, 3, 32, 17, 80, 1], np.int32)
+    B = 2 * F
+    ws = np.zeros((B, S2), np.int8)
+    ws[0] = 1
+    ws[1] = rng.integers(0, 12, S2)
+    ws[2, ::4] = np.int8(81)
+    ws[3] = rng.integers(0, 3, S2)
+    ws[4, 0] = 33
+    ws[5] = rng.integers(0, 96, S2) % 33
+    for lane in range(6, B):
+        ws[lane] = rng.integers(0, 14, S2)
+    r = rng.integers(0, 1 << 32, (3, B, S2), dtype=np.uint64).astype(np.uint32)
+    w = ws.astype(np.int64)
+    c2 = np.where(w >= 32, r[2], r[2] & ((1 << np.minimum(w, 31)) - 1))
+    wm = np.clip(w - 32, 0, 32)
+    c1 = np.where(wm >= 32, r[1], r[1] & ((1 << np.minimum(wm, 31)) - 1))
+    wh = np.clip(w - 64, 0, 32)
+    c0 = np.where(wh >= 32, r[0], r[0] & ((1 << np.minimum(wh, 31)) - 1))
+    planes = tuple(x.astype(np.uint32) for x in (c0, c1, c2))
+    return (*planes, ws), n, stereo, hbits
+
+
+def _music_chunk(F, S=4096, seed=0):
+    """F frames of 16-bit stereo music and, last, one frame of full-range
+    noise (its quads pass 96 bits)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(F * S)[:, None]
+    x = 4000 * np.sin(t * 0.013 + np.arange(2)) + 1500 * np.sin(t * 0.0913) \
+        + rng.normal(0, 30, (F * S, 2))
+    frames = list(x.astype(np.int32).reshape(F, S, 2))
+    frames[-1] = rng.integers(-32768, 32767, (S, 2)).astype(np.int32)
+    return frames
+
+
+@pytest.mark.parametrize("impl", ["pack_frames_device", "pack_frames_device_scatter"])
+def test_device_packers_on_card_match_cpu(cuda, impl):
+    """Both device packers on CUDA tensors against their own CPU run, bit
+    for bit: the adversarial planes, and a 1,024-frame chunk's classic
+    planes as the encoder dispatches them."""
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.codec import encoder_device as ed
+    from alacnet_tpu_torch.ops import encode
+
+    fn = getattr(encode, impl)
+    (c0, c1, c2, ws), n, stereo, hbits = pack_planes(np.random.default_rng(11))
+    host = [torch.from_numpy(np.ascontiguousarray(x).view(np.int32) if x.dtype == np.uint32
+                             else x) for x in (c0, c1, c2, ws, n, stereo, hbits)]
+    want = fn(*host, stride_words=256)
+    got = fn(*(x.to(cuda) for x in host), stride_words=256)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+    frames = _music_chunk(1024)
+    params = at.default_cookie(44100, 16, 2)
+    cfg = at.EncoderConfig()
+    prep = ed._prep(frames, params, cfg, at.AlacEncoder(params, cfg))
+    fetch = ed._dispatch(prep, params, cfg, cuda, pack="scatter")
+    stride = ed._pack_stride(prep, fetch.get(4)[0])
+    hb = torch.from_numpy(prep["hbits"].astype(np.int32))
+    args = (*fetch.planes[:4], torch.from_numpy(prep["ns_f"]),
+            torch.from_numpy(prep["stereo_f"]), hb)
+    got = fn(*(a.to(cuda) for a in args), stride_words=stride)
+    want = fn(*(a.cpu() for a in args), stride_words=stride)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("route", [dict(pack="scatter"), dict(pack="gather"),
+                                   dict(quads=True)], ids=["scatter", "gather", "quads"])
+def test_encode_routes_on_card_match_host(cuda, route):
+    """Each packing route on the card, chunks of 4 frames: mono, partial,
+    silent and music frames, and a full-range noise frame, which the
+    quad route repacks from its pair rows."""
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.codec.encoder_device import encode_frames_device
+
+    S = 4096
+    frames = _music_chunk(7)
+    frames[1] = frames[1][:, :1]
+    frames[2] = frames[2][: S // 2 + 9]
+    frames[4] = np.zeros((S, 2), np.int32)
+    params = at.default_cookie(44100, 16, 2)
+    cfg = at.EncoderConfig()
+    timings = {}
+    got = encode_frames_device(frames, params, cfg, timings=timings, chunk_frames=4,
+                               device="cuda", **route)
+    host = at.AlacEncoder(params, cfg)
+    assert got == [host.encode_frame(f) for f in frames]
+    if "quads" in route:
+        assert timings["quad_chunks"] == 2 and timings["repacked_frames"] == 1
+    else:
+        assert timings["device_pack_chunks"] == 2
+
+
+def test_device_pack_from_the_worker_runs_on_the_dispatch_device(cuda, monkeypatch):
+    """The pack worker thread launches the device pack on the dispatch's
+    device (the last visible card), on a side stream, not on its own
+    default device and stream."""
+    import threading
+
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.codec.encoder_device import encode_frames_device
+    from alacnet_tpu_torch.ops import encode
+
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    seen = []
+    real = encode.pack_frames_device_scatter
+
+    def rec(*args, **kw):
+        seen.append((threading.current_thread() is threading.main_thread(),
+                     torch.cuda.current_device(), torch.cuda.current_stream(),
+                     torch.cuda.default_stream(dev), args[0].device))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(encode, "pack_frames_device_scatter", rec)
+    frames = _music_chunk(3)
+    params = at.default_cookie(44100, 16, 2)
+    got = encode_frames_device(frames, params, chunk_frames=1, device=dev, pack="scatter")
+    host = at.AlacEncoder(params)
+    assert got == [host.encode_frame(f) for f in frames]
+    assert len(seen) == 3
+    for on_main, current, stream, default, tensor_dev in seen:
+        assert not on_main and current == dev.index and tensor_dev == dev
+        assert stream.device == dev and stream != default
