@@ -17,6 +17,8 @@ the host encoder instead.  ``--mesh`` (``encode``, ``batch-encode``,
 ``--device``'s type (``parallel/mesh.py``).  ``--pack`` and ``--quads``
 (``encode``, ``batch-encode``) choose who packs the payload bytes
 (``codec/encoder_device.encode_frames_device``); the bytes are the same.
+Left out, they and the kernel route take the ``ALAC_ENC_*`` variables
+(``encoder_device.resolve_routes``).
 """
 
 from __future__ import annotations
@@ -306,13 +308,15 @@ def _pack_args(p) -> None:
     from .codec.encoder_device import PACK_CHOICES
 
     p.add_argument(
-        "--pack", choices=PACK_CHOICES, default="host",
-        help="who packs the payload bytes: the host's pair packer (default), "
-        "or the device (scatter or gather); the bytes are the same",
+        "--pack", choices=PACK_CHOICES, default=None,
+        help="who packs the payload bytes: the host's pair packer, or the "
+        "device (scatter or gather); the bytes are the same (default: "
+        "ALAC_ENC_DEVICE_PACK and ALAC_ENC_PACK_IMPL, else host)",
     )
     p.add_argument(
-        "--quads", action="store_true",
-        help="pack one field per four samples on the host pair path",
+        "--quads", action="store_true", default=None,
+        help="pack one field per four samples on the host pair path "
+        "(default: ALAC_ENC_QUAD=1, else off)",
     )
 
 

@@ -596,10 +596,11 @@ def encode_m4a(
     config: EncoderConfig | None = None,
     max_samples_per_frame: int = 4096,
     device=None,
-    kernel: str = "auto",
+    kernel: str | None = None,
     mesh=None,
-    pack: str = "host",
-    quads: bool = False,
+    pack: str | None = None,
+    quads: bool | None = None,
+    pairs: bool | None = None,
     **mux_kwargs,
 ) -> CodecParams:
     """Encode a PCM array (num_samples, channels) into a complete .m4a.
@@ -610,9 +611,12 @@ def encode_m4a(
     on the host.  ``kernel`` routes the device stages ("auto", "cuda",
     "torch"; ops/cuda/_lib.py).  ``mesh`` (``parallel/mesh.Mesh``;
     implies the device path and overrides ``device``) splits the frames
-    over its shards.  ``pack`` ("host", "scatter", "gather") and
-    ``quads`` choose the device path's packing route
+    over its shards.  ``pack`` ("host", "scatter", "gather"), ``quads``
+    and ``pairs`` choose the device path's packing route
     (``encoder_device.encode_frames_device``); the bytes are the same.
+    ``kernel``, ``pack``, ``quads`` and ``pairs`` left at None take the
+    ``ALAC_ENC_*`` variables or their defaults
+    (``encoder_device.resolve_routes``).
     """
     pcm = np.asarray(pcm)
     if pcm.ndim == 1:
@@ -634,7 +638,7 @@ def encode_m4a(
 
         frames = encode_frames_device(
             chunks, params, config, device=device, kernel=kernel, mesh=mesh,
-            pack=pack, quads=quads,
+            pack=pack, quads=quads, pairs=pairs,
         )
     else:
         enc = AlacEncoder(params, config)
@@ -651,10 +655,11 @@ def encode_files(
     config: EncoderConfig | None = None,
     max_samples_per_frame: int = 4096,
     device="cuda",
-    kernel: str = "auto",
+    kernel: str | None = None,
     mesh=None,
-    pack: str = "host",
-    quads: bool = False,
+    pack: str | None = None,
+    quads: bool | None = None,
+    pairs: bool | None = None,
     **mux_kwargs,
 ) -> "list[CodecParams]":
     """Encode many PCM arrays into .m4a files in POOLED device batches —
@@ -676,9 +681,13 @@ def encode_files(
     which the device pipeline does not carry).  ``kernel`` routes the
     device stages.  ``mesh`` (``parallel/mesh.Mesh``; implies the device
     path and overrides ``device``) splits each chunk's frames over its
-    shards.  ``pack`` ("host", "scatter", "gather") and ``quads`` choose
-    the device path's packing route (``encode_frames_device``); the
-    bytes are the same.  Returns the per-file CodecParams.
+    shards.  ``pack`` ("host", "scatter", "gather"), ``quads`` and
+    ``pairs`` choose the device path's packing route
+    (``encode_frames_device``); the bytes are the same.  ``kernel``,
+    ``pack``, ``quads`` and ``pairs`` left at None take the
+    ``ALAC_ENC_*`` variables or their defaults
+    (``encoder_device.resolve_routes``).  Returns the per-file
+    CodecParams.
     """
     import os
 
@@ -735,7 +744,7 @@ def encode_files(
 
             frames = encode_frames_device(
                 chunks, params, config, device=device, kernel=kernel, mesh=mesh,
-                pack=pack, quads=quads,
+                pack=pack, quads=quads, pairs=pairs,
             )
         pos = 0
         for j, i in enumerate(idxs):

@@ -34,11 +34,20 @@ stream that waits for the chunk's stages (``_Planes.side``).
 Output payloads are byte-identical to ``codec/encoder.AlacEncoder`` given
 the same configuration, and to the JAX package's ``encode_frames_tpu``
 (tests/test_torch_encoder.py).
+
+Routes (:func:`resolve_routes`): an argument left at None reads the JAX
+package's variable, else takes the default — ``ALAC_ENC_KERNEL``
+(auto, fused, xla), ``ALAC_ENC_PAIR`` (auto, 0, 1),
+``ALAC_ENC_DEVICE_PACK=1`` with ``ALAC_ENC_PACK_IMPL`` (scatter,
+gather), ``ALAC_ENC_QUAD`` (auto, 0, 1; only 1 turns quads on).  With
+none set: the kernels under ``auto``, the native pair packer on the
+host, no quads.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import queue
 import threading
 import time
@@ -47,6 +56,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..config import KERNEL_ALIASES, env_choice
 from ..ops.lpc import MAX_ORDER, LpcParams, reverse_coefs
 from ..utils.transfer import d2h_async, h2d
 from .cookie import CodecParams
@@ -57,6 +67,45 @@ from .encoder import AlacEncoder, EncoderConfig, levinson_coefs_batch
 CHUNK_FRAMES = 1024
 #: Who packs the payload bytes (``encode_frames_device(pack=)``).
 PACK_CHOICES = ("host", "scatter", "gather")
+
+
+def resolve_pairs(pairs: bool | None = None) -> bool:
+    """Whether the host packs pair planes: ``pairs``, else
+    ``ALAC_ENC_PAIR`` (``0`` off, ``1`` on, ``auto``, the default, on
+    where the native tier is available).  On needs the native tier: the
+    pair packer has no Python version, so without it an explicit
+    ``True`` or ``ALAC_ENC_PAIR=1`` raises."""
+    if pairs is None:
+        mode = env_choice("ALAC_ENC_PAIR", "auto", ("auto", "0", "1"))
+        if mode == "0":
+            return False
+        pairs = True if mode == "1" else native.available()
+    if pairs and not native.available():
+        raise RuntimeError("the pair packer needs the native host tier "
+                           "(it has no Python version)")
+    return pairs
+
+
+def resolve_routes(kernel: str | None = None, pack: str | None = None,
+                   quads: bool | None = None, pairs: bool | None = None) -> dict:
+    """The encode route of the arguments, each left at None read from
+    its variable (the module docstring), else the default.  Returns
+    ``{"kernel", "pack", "quads", "pairs"}``; ``pairs`` is on only where
+    ``pack`` is "host", as in the JAX package, whose device pack turns
+    the pair planes off."""
+    if kernel is None:
+        kernel = env_choice("ALAC_ENC_KERNEL", "auto", ("auto", "fused", "xla"),
+                            KERNEL_ALIASES)
+    if pack is None:
+        pack = "host"
+        if os.environ.get("ALAC_ENC_DEVICE_PACK", "0") == "1":
+            pack = env_choice("ALAC_ENC_PACK_IMPL", "scatter", ("scatter", "gather"))
+    if pack not in PACK_CHOICES:
+        raise ValueError(f"pack={pack!r}: expected one of {PACK_CHOICES}")
+    if quads is None:
+        quads = env_choice("ALAC_ENC_QUAD", "0", ("auto", "0", "1")) == "1"
+    pairs = resolve_pairs(pairs) and pack == "host"
+    return {"kernel": kernel, "pack": pack, "quads": bool(quads), "pairs": pairs}
 
 
 def check_device(device) -> torch.device:
@@ -377,10 +426,10 @@ def _dispatch(prep, params: CodecParams, cfg: EncoderConfig, device: torch.devic
     the planes the route packs first, and return them as a
     :class:`_Planes`.
 
-    ``pairs`` (default: on when the native tier is available, which the
-    pair packer needs, and ``pack`` is "host") selects the pair-merged
-    planes; a batch with a non-fitting pair re-dispatches the classic
-    per-sample planes through ``prep["_classic_dispatch"]`` (see
+    ``pairs`` (default: :func:`resolve_pairs`, where ``pack`` is
+    "host") selects the pair-merged planes; a batch with a non-fitting
+    pair re-dispatches the classic per-sample planes through
+    ``prep["_classic_dispatch"]`` (see
     :func:`_pack_host_pairs`).  ``quads`` adds the quad planes on the
     pair path, for batches without an extra-bits plane (the packer
     counts that plane per SAMPLE): only the flags cross at dispatch.
@@ -395,7 +444,7 @@ def _dispatch(prep, params: CodecParams, cfg: EncoderConfig, device: torch.devic
     from ..ops.encode import RiceEncParams, encode_stages_pcm
 
     if pairs is None:
-        pairs = native.available() and pack == "host"
+        pairs = resolve_pairs() and pack == "host"
     prep["pairs"] = pairs
     quads = prep["quads"] = bool(quads and pairs and prep["extra_plane"] is None)
     prep["device_pack"] = (
@@ -746,10 +795,11 @@ def encode_frames_device(
     timings: dict | None = None,
     chunk_frames: int | None = None,
     device="cuda",
-    kernel: str = "auto",
+    kernel: str | None = None,
     mesh=None,
-    pack: str = "host",
-    quads: bool = False,
+    pack: str | None = None,
+    quads: bool | None = None,
+    pairs: bool | None = None,
 ) -> list[bytes]:
     """Encode PCM frames in device batches.
 
@@ -760,7 +810,9 @@ def encode_frames_device(
 
     ``device``: torch device of the automatons (``"cuda"`` raises without
     a card; ``"cpu"`` runs their plain torch versions).  ``kernel``:
-    "auto" | "cuda" | "torch" (ops/cuda/_lib.py).  Batches larger than
+    "auto" | "cuda" | "torch" (ops/cuda/_lib.py).  ``kernel``, ``pack``,
+    ``quads`` and ``pairs`` left at None take their variables or their
+    defaults (:func:`resolve_routes`).  Batches larger than
     ``chunk_frames`` (default CHUNK_FRAMES) run as the bounded pipeline
     of the module docstring.
 
@@ -783,12 +835,12 @@ def encode_frames_device(
     package.  ``quads``: on the host pair path, fold adjacent pairs once
     more and pack one field per four samples where at most half a
     chunk's frames are quad-fat (those are repacked from their pair
-    rows).  Every route's bytes are the same.  ``timings`` then also
+    rows).  ``pairs=False`` packs the classic per-sample planes on the
+    host.  Every route's bytes are the same.  ``timings`` then also
     counts ``d2h_bytes`` (everything copied back), ``quad_chunks``,
     ``repacked_frames`` and ``device_pack_chunks``.
     """
-    if pack not in PACK_CHOICES:
-        raise ValueError(f"pack={pack!r}: expected one of {PACK_CHOICES}")
+    route = resolve_routes(kernel, pack, quads, pairs)
     cfg = config or EncoderConfig()
     if cfg.force_uncompressed:
         raise ValueError("device encoder handles the compressed path only")
@@ -857,8 +909,7 @@ def encode_frames_device(
                 chunk = [np.asarray(fr) for fr in chunk] + fill
             prep = _prep(chunk, params, cfg, enc)
             prep["real_frames"] = real
-            fetch = _dispatch(prep, params, cfg, dev, kernel, mesh=mesh,
-                              pack=pack, quads=quads)  # async
+            fetch = _dispatch(prep, params, cfg, dev, mesh=mesh, **route)  # async
             if timings is not None:
                 timings["prep_s"] = (
                     timings.get("prep_s", 0.0) + time.perf_counter() - t0

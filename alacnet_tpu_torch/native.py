@@ -16,6 +16,9 @@ frame packers of the batch path and the symbol-plane packer of the
 ``rice_emit`` route — keep the JAX package's signatures
 (``alacnet_tpu/native.py``): each returns None when the library cannot
 be built, and its caller then takes its NumPy or Python path.
+
+As in the JAX package, ``ALAC_NO_NATIVE`` (any non-empty value) or
+``ALAC_NATIVE=0`` turns the whole tier off.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import subprocess
 import threading
 
 import numpy as np
+
+from .config import env_bool
 
 _PKG = pathlib.Path(__file__).resolve().parent
 _SRC = _PKG / "_native" / "host.cpp"
@@ -89,8 +94,12 @@ def _build() -> pathlib.Path | None:
 
 
 def get_lib() -> ctypes.CDLL | None:
-    """The loaded native library, or None when it cannot be built."""
+    """The loaded native library, or None when it cannot be built or
+    the environment turns it off (``ALAC_NO_NATIVE`` set to anything, or
+    ``ALAC_NATIVE`` false; read at every call)."""
     global _lib, _tried
+    if os.environ.get("ALAC_NO_NATIVE") or not env_bool("ALAC_NATIVE", True):
+        return None
     with _lock:
         if _tried:
             return _lib

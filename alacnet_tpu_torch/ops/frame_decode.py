@@ -12,7 +12,10 @@ stages of DecodeFrame (AlacFile.cs:428-719) over a lane-per-frame batch:
 Each kernel wrapper runs its plain torch version for CPU tensors.
 Which optional stages run (extra bits, channel B, raw frames) is decided
 from the host copy of the metadata, never from device values, so no
-batch synchronises the stream.
+production batch synchronises the stream.  The entries are
+:func:`decode_frames_packed` (the production one: the metadata as one
+host matrix) and :func:`decode_frames` (the metadata as
+:class:`FrameMetaArrays`); both run :func:`_decode_frames_impl`.
 """
 
 from __future__ import annotations
@@ -131,6 +134,21 @@ class FrameMetaArrays(NamedTuple):
         """One H2D copy of the host matrix ``pack_host`` builds, unpacked."""
         return cls.unpack(h2d(np.asarray(packed, np.int32), torch.device(device)))
 
+    @classmethod
+    def from_batch(cls, fb, device) -> "FrameMetaArrays":
+        """A FrameBatch's fields as tensors on ``device``, one copy each."""
+        dev = torch.device(device)
+        return cls(*(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                     for x in cls.host_arrays(fb)))
+
+    def pack(self) -> torch.Tensor:
+        """The ``pack_host`` layout of these fields, (B, N_PACKED) int32
+        on their device."""
+        B = self.n_samples.shape[0]
+        cols = (*self[:10], self.kmod, self.init_history, self.kmask,
+                self.order, self.quant, self.rice_mult, self.rc)
+        return torch.cat([c.to(I32).reshape(B, -1) for c in cols], dim=1)
+
 
 def _extra_bits(words, m: FrameMetaArrays, S: int):
     """Extra-bits side channel, interleaved A,B per sample (:634-641).
@@ -196,10 +214,66 @@ def decode_frames_packed(
     at i >= n are zero.  ``emit16`` returns int16 samples (valid only
     when every lane is a 16-bit stream).
     """
+    pm = np.asarray(packed_meta, np.int32)
+    m = FrameMetaArrays.from_packed(pm, words.device)
+    return _decode_frames_impl(words, m, pm, num_samples, emit16, kernel)[:2]
+
+
+def decode_frames(
+    words: torch.Tensor,
+    meta: FrameMetaArrays,
+    num_samples: int,
+    emit16: bool = False,
+    kernel: str = "auto",
+    return_ends: bool = False,
+):
+    """:func:`decode_frames_packed` with the metadata as
+    :class:`FrameMetaArrays` (``FrameMetaArrays.from_batch``) on the
+    device of ``words``.
+
+    Which stages run is decided on the host, so this makes one host
+    copy of the packed metadata: for device tensors that copy waits for
+    the stream (a sync).  The production paths stay on
+    :func:`decode_frames_packed`, whose metadata starts on the host.
+    The CUDA kernels never stall, so no lane reports n = -1.
+    ``return_ends`` also returns the bit cursors where channel A's and
+    channel B's entropy decodes ended, (end_a, end_b) (B,) int32 each.
+    """
+    packed = meta.pack()  # on the device; its views are the kernels' layout
+    out, n, ends = _decode_frames_impl(words, FrameMetaArrays.unpack(packed),
+                                       packed.cpu().numpy(), num_samples, emit16, kernel)
+    return (out, n, ends) if return_ends else (out, n)
+
+
+def _entropy_channels(words, m: FrameMetaArrays, n_a, n_b, S: int, max_order: int,
+                      kernel: str, run_b: bool = True):
+    """Rice + LPC (kernel 2) of channel A, then of channel B from the bit
+    where A ended.  Returns (out_a, out_b, end_a, end_b); without
+    ``run_b`` channel B is not decoded, ``out_b`` is None and ``end_b``
+    is where it would start."""
+
+    def channel(start, n_ch, c):
+        return fused_rice_lpc(
+            words, start, n_ch, m.rss, m.kmod, m.init_history,
+            m.rice_mult[:, c], m.kmask, m.order[:, c], m.quant[:, c],
+            m.rc[:, c].contiguous(), S, max_order=max_order, kernel=kernel,
+        )
+
+    out_a, end_a = channel(m.entropy_pos, n_a, 0)
+    start_b = torch.clamp(end_a, min=0)
+    out_b, end_b = channel(start_b, n_b, 1) if run_b else (None, start_b)
+    return out_a, out_b, end_a, end_b
+
+
+def _decode_frames_impl(words, m: FrameMetaArrays, pm: np.ndarray, num_samples: int,
+                        emit16: bool, kernel: str):
+    """The decode of both entries: ``m`` the metadata on the device of
+    ``words``, ``pm`` its packed host copy, which picks the stages.
+    Returns (samples, n, (end_a, end_b)), the last the entropy decodes'
+    end bits (:func:`_entropy_channels`)."""
     S = num_samples
     B = words.shape[0]
     dev = words.device
-    pm = np.asarray(packed_meta, np.int32)
     live_h = np.clip(pm[:, 2], 0, S) > 0
     comp_h = pm[:, 1] != 0
     any_extra = bool(((pm[:, 4] > 0) & comp_h & live_h).any())
@@ -209,7 +283,6 @@ def decode_frames_packed(
     orders = orders[orders != MAX_ORDER]
     max_order = int(orders.max()) if orders.size else 0
 
-    m = FrameMetaArrays.from_packed(pm, dev)
     comp = m.is_compressed
     n = torch.clamp(m.n_samples, 0, S)
     n_comp = torch.where(comp, n, 0)
@@ -230,15 +303,10 @@ def decode_frames_packed(
         extra_a, extra_b = zeros(), zeros()
 
     # ---- Rice + LPC (kernel 2), channel B from A's end bit ----
-    def channel(start, n_ch, c):
-        return fused_rice_lpc(
-            words, start, n_ch, m.rss, m.kmod, m.init_history,
-            m.rice_mult[:, c], m.kmask, m.order[:, c], m.quant[:, c],
-            m.rc[:, c].contiguous(), S, max_order=max_order, kernel=kernel,
-        )
-
-    out_a, pos_after_a = channel(m.entropy_pos, n_comp, 0)
-    out_b = channel(torch.clamp(pos_after_a, min=0), n_b, 1)[0] if any_b else zeros()
+    out_a, out_b, end_a, end_b = _entropy_channels(
+        words, m, n_comp, n_b, S, max_order, kernel, run_b=any_b)
+    if out_b is None:
+        out_b = zeros()
 
     # ---- raw frames (kernel 3) ----
     if any_raw:
@@ -286,4 +354,4 @@ def decode_frames_packed(
     out = torch.stack([left, right], dim=-1)
     if emit16:
         out = out.to(torch.int16)
-    return out, n
+    return out, n, (end_a, end_b)

@@ -128,7 +128,32 @@ on failure, each printing its seconds:
    each route's rate (median of the timed rounds) over the pair
    route's, and the D2H bytes per sample, beside the card's name and
    power limit.  The ``kernels`` line's ``route_launches`` are each
-   route's checked-run counts.
+   route's checked-run counts;
+11. soak, fuzz, route variables — (a) ``scripts/soak_torch.run_soak``
+   at ``SOAK_MINUTES`` (six formats, 32,040,000 samples): every file's
+   ``encode_m4a(device="cuda")`` bytes against the host encoder's, the
+   pooled ``decode_files`` bit-exact per file, the encode and decode
+   walls and rates; ``pack_rows``, ``rice_lpc``, ``bulk_bits``,
+   ``enc_pred`` and ``enc_rice`` must launch (counts set to 0 just
+   before, read just after: the ``kernels`` line's ``soak_launches``);
+   each wrapper call of the soak is recorded and, after it, run again
+   through the kernel and the plain version, bit for bit: the first call
+   of each group (a decode batch's formats and order bucket, an encode
+   file), then the rest, while the kernel's plain total stays under
+   ``SOAK_PLAIN_BUDGET_S`` (``soak_kernel_check`` lines; every kernel
+   compared at least once; the ``kernels`` line's ``soak_max_abs_err``
+   and ``soak_plain_calls``); (b) the fuzz batches (1,536 16-bit and
+   768 24-bit frames of 64 samples, seeds 101 and 202) through
+   ``decode_frames`` with ``kernel="cuda"`` and ``kernel="torch"``, lane
+   by lane: lanes whose cursor (the decode's own) leaves its word row on
+   either route are counted and printed, every other lane must be equal
+   (``soak_torch.fuzz_routes``); (c) music.m4a's PCM encoded once under
+   each of ``ROUTE_VARS`` (``ALAC_ENC_PAIR=0``, ``ALAC_ENC_QUAD=1``,
+   ``ALAC_ENC_DEVICE_PACK=1`` with either ``ALAC_ENC_PACK_IMPL``), its
+   bytes against ``encode_expected.json`` and the packer that ran
+   against the variable's.  Before phase 1 the script removes every
+   ``ALAC_*`` variable the port reads (``PORT_ENV``) and prints the ones
+   it removed, so phases 1-10 run the defaults.
 
 In the ``kernels`` line, ``ms`` is the kernel's time summed over every
 call the path made (mean of 5 launches each from the host, CUDA
@@ -1667,6 +1692,265 @@ def run_encoder_routes(decoded, names, enc_expected, card: str) -> dict:
     return rec
 
 
+#: The ``ALAC_*`` variables the port reads (``config.py``, ``native.py``,
+#: ``codec/encoder_device.py``): removed before phase 1, so phases 1-10
+#: run the defaults; phase 11 sets them itself, case by case.
+PORT_ENV = ("ALAC_BATCH_LIMIT", "ALAC_STREAM_WINDOW", "ALAC_KERNEL", "ALAC_STRICT",
+            "ALAC_EMIT16", "ALAC_NATIVE", "ALAC_DEVICE_PACK", "ALAC_ENC_KERNEL",
+            "ALAC_ENC_PAIR", "ALAC_ENC_QUAD", "ALAC_ENC_DEVICE_PACK", "ALAC_ENC_PACK_IMPL",
+            "ALAC_NO_NATIVE")
+#: Minutes of audio in phase 11's soak (``scripts/soak_torch.py``'s
+#: default: six files, 32,040,000 samples).
+SOAK_MINUTES = 10.0
+#: Kernels the soak's path must launch (``rice_emit`` is on no encoder path).
+SOAK_KERNELS = DECODE_KERNELS + ENCODE_KERNELS
+#: Where the soak calls each kernel wrapper (its decode and its device encode).
+SOAK_CALL_SITES = {**CALL_SITES, **ENC_CALL_SITES}
+#: Seconds of plain-version runs each kernel's soak check may spend past
+#: its first call (the plain rice_lpc takes ~10 s a call at the soak's
+#: 4,096-lane batches on the H100, the plain predictor ~7 s a chunk).
+SOAK_PLAIN_BUDGET_S = 40.0
+#: Phase 11's route variables, each set for one encode of music.m4a's PCM,
+#: with the packer the route must take.
+ROUTE_VARS = (
+    ({"ALAC_ENC_PAIR": "0"}, "_pack_host"),
+    ({"ALAC_ENC_QUAD": "1"}, "_pack_host_pairs"),
+    ({"ALAC_ENC_DEVICE_PACK": "1", "ALAC_ENC_PACK_IMPL": "scatter"}, "_pack_device"),
+    ({"ALAC_ENC_DEVICE_PACK": "1", "ALAC_ENC_PACK_IMPL": "gather"}, "_pack_device"),
+)
+
+
+def clear_port_env() -> list:
+    """Remove every variable of ``PORT_ENV`` from the environment; the
+    ones removed, with their values."""
+    import os
+
+    return [(k, os.environ.pop(k)) for k in PORT_ENV if k in os.environ]
+
+
+@contextlib.contextmanager
+def env_set(values: dict):
+    """The variables ``values`` set for the block, removed after it."""
+    import os
+
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k in values:
+            os.environ.pop(k, None)
+
+
+def _scripts():
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import soak_torch
+
+    return soak_torch
+
+
+def record_soak_calls(calls):
+    """``wrapped`` factories that append each kernel wrapper call of the
+    soak to ``calls[kernel]`` as (args, kwargs, group): a decode call's
+    group is its place among its batch's calls of that kernel, the
+    batch's formats and its ``max_order``; an encode call's is the
+    ``encode_frames_device`` run (one a file) it belongs to."""
+    state = {"placed": {}, "formats": None, "run": -1}
+
+    def make(key, orig):
+        def rec(*args, **kwargs):
+            if key in ENCODE_KERNELS:
+                group = state["run"]
+            else:
+                place = state["placed"].get(key, 0)
+                state["placed"][key] = place + 1
+                group = (place, state["formats"], kwargs.get("max_order"))
+            calls.setdefault(key, []).append((args, kwargs, group))
+            return orig(*args, **kwargs)
+        return rec
+
+    def per_batch(key, orig):
+        def run(fb, *args, **kwargs):
+            state.update(formats=batch_formats(fb), placed={})
+            return orig(fb, *args, **kwargs)
+        return run
+
+    def per_run(key, orig):
+        def run(*args, **kwargs):
+            state["run"] += 1
+            return orig(*args, **kwargs)
+        return run
+
+    return make, per_batch, per_run
+
+
+def compare_soak_calls(calls, budget_s) -> dict:
+    """Phase 11 (a)'s kernel checks: the calls the soak made
+    (``record_soak_calls``) run again through the kernel and through the
+    plain version, bit for bit — the first call of each group (one of
+    each decode batch's formats before a second), then the other calls,
+    while the kernel's plain total stays under ``budget_s`` (its first
+    call always).  Fails unless every kernel of ``SOAK_KERNELS`` was
+    compared at least once."""
+    import torch
+
+    fns = {**decode_fns(), **enc_fns()}
+    torch.cuda.synchronize()
+    results = {}
+    for name in SOAK_KERNELS:
+        recorded = calls.get(name, [])
+        if not recorded:
+            raise RuntimeError(f"soak: no {name} call recorded")
+        fn = fns[name]
+        # The first call of each group, those of formats not yet taken
+        # first (a decode group's formats are its second field), then the rest.
+        firsts, seen, taken = [], set(), {}
+        for idx, (_, _, group) in enumerate(recorded):
+            if group not in seen:
+                seen.add(group)
+                family = group[1] if isinstance(group, tuple) else group
+                firsts.append((taken.get(family, 0), idx))
+                taken[family] = taken.get(family, 0) + 1
+        firsts = [idx for _, idx in sorted(firsts)]
+        order = firsts + [i for i in range(len(recorded)) if i not in set(firsts)]
+        err, ms, plain_ms, compared, shapes, groups = 0, 0.0, 0.0, [], [], set()
+        for idx in order:
+            if compared and plain_ms / 1e3 >= budget_s:
+                break
+            args, kw, group = recorded[idx]
+            got = []
+            ms += cuda_ms(lambda: got.append(fn(*args, **{**kw, "kernel": "cuda"})), 1)
+            plain = []
+            plain_ms += cuda_ms(
+                lambda: plain.append(fn(*args, **{**kw, "kernel": "torch"})), 1
+            )
+            err = max(err, max_abs_err(name, got[0], plain[0]))
+            if err != 0:  # the tolerance: bit for bit
+                raise RuntimeError(f"soak {name} call {idx}: kernel differs from plain, "
+                                   f"max |err| {err}")
+            compared.append(idx)
+            groups.add(group)
+            shapes.append(list((got[0] if isinstance(got[0], tuple) else (got[0],))[0].shape))
+        results[name] = {"calls": len(recorded), "groups": len(seen),
+                         "compared_calls": sorted(compared), "compared_groups": len(groups),
+                         "shapes": shapes, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms}
+        if name == "rice_lpc":
+            results[name]["max_orders"] = sorted(
+                {recorded[i][1].get("max_order") for i in compared}, key=str)
+        emit({"soak_kernel_check": name, **results[name]})
+    return results
+
+
+def run_soak_phase(card: str) -> dict:
+    """Phase 11 (a): ``scripts/soak_torch.run_soak`` on the card, the
+    launch counts set to 0 just before and read just after, each kernel
+    wrapper call recorded; then the recorded calls through kernel and
+    plain version (``compare_soak_calls``)."""
+    import torch
+
+    from alacnet_tpu_torch.ops.cuda import _lib
+
+    soak = _scripts()
+    calls = {}
+    make, per_batch, per_run = record_soak_calls(calls)
+    with tempfile.TemporaryDirectory() as tmp, wrapped(SOAK_CALL_SITES, make), \
+            wrapped(DISPATCH_SITE, per_batch), wrapped(ENCODE_DEVICE, per_run):
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        rec = soak.run_soak(SOAK_MINUTES, tmp, DEVICE, log=lambda *a: None)
+        torch.cuda.synchronize()
+        launches = dict(_lib.LAUNCHES)
+    if not rec["encode_host_device_bytes_equal"]:
+        raise RuntimeError(f"soak: device bytes differ from the host encoder's: {rec['files']}")
+    if not rec["decode_bit_exact"]:
+        raise RuntimeError(f"soak: a decoded file differs from its source: {rec['files']}")
+    idle = [k for k in SOAK_KERNELS if launches.get(k, 0) == 0]
+    if idle:
+        raise RuntimeError(f"soak: {idle} never launched: {launches}")
+    rec.update(launches=launches, card=card)
+    emit({"soak": rec})
+    t = time.perf_counter()
+    rec["kernel_checks"] = compare_soak_calls(calls, SOAK_PLAIN_BUDGET_S)
+    rec["kernel_checks_s"] = time.perf_counter() - t
+    del calls
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_fuzz_phase(card: str) -> list:
+    """Phase 11 (b): the fuzz batches through ``decode_frames`` with
+    ``kernel="cuda"`` and ``kernel="torch"``, lane by lane
+    (``soak_torch.fuzz_routes``: clipped lanes counted, the rest equal)."""
+    recs = _scripts().fuzz_routes(DEVICE, ("cuda", "torch"))
+    emit({"fuzz": recs, "card": card})
+    bad = [r for r in recs if not r["equal"]]
+    if bad:
+        raise RuntimeError(f"fuzz: kernel and plain differ on unclipped lanes: {bad}")
+    return recs
+
+
+def route_variables(decoded, enc_expected, card: str) -> list:
+    """Phase 11 (c): music.m4a's PCM encoded once (``encode_files(
+    device="cuda")``, one chunk of 16 frames) under each of
+    ``ROUTE_VARS``: the bytes against ``encode_expected.json`` and the
+    packer that ran against the variable's."""
+    import alacnet_tpu_torch
+    from alacnet_tpu_torch.codec import encoder_device as ed
+
+    name = "music.m4a"
+    want = enc_expected[f"{name}|default"]
+    r = decoded[name]
+    ran = []
+
+    def spy(key, orig):
+        def run(*args, **kwargs):
+            ran.append(key)
+            return orig(*args, **kwargs)
+        return run
+
+    packers = {k: ("alacnet_tpu_torch.codec.encoder_device", k)
+               for k in ("_pack_host", "_pack_host_pairs", "_pack_device")}
+    recs = []
+    for values, packer in ROUTE_VARS:
+        ran.clear()
+        out = io.BytesIO()
+        with env_set(values), wrapped(packers, spy):
+            route = ed.resolve_routes()
+            alacnet_tpu_torch.encode_files([r.pcm], [out], r.sample_rate, r.bits_per_sample,
+                                           device=DEVICE)
+        data = out.getvalue()
+        ok = (len(data) == want["bytes"]
+              and hashlib.sha256(data).hexdigest() == want["sha256"])
+        rec = {"env": values, "route": route, "packers": list(ran), "bytes_equal": ok}
+        recs.append(rec)
+        if not ok:
+            raise RuntimeError(f"route variables {values}: bytes differ from "
+                               "encode_expected.json")
+        if ran != [packer]:
+            raise RuntimeError(f"route variables {values}: packed by {ran}, "
+                               f"expected {packer}")
+    emit({"route_variables": recs, "card": card})
+    return recs
+
+
+def run_phase11(decoded, enc_expected, card: str) -> dict:
+    """Phase 11: the soak and its kernel checks, the fuzz, the route
+    variables."""
+    times = {}
+    t = time.perf_counter()
+    soak = run_soak_phase(card)
+    times["soak_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fuzz = run_fuzz_phase(card)
+    times["fuzz_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    routes = route_variables(decoded, enc_expected, card)
+    times["routes_s"] = time.perf_counter() - t
+    times["soak_checks_s"] = soak["kernel_checks_s"]
+    return {"soak": soak, "fuzz": fuzz, "routes": routes,
+            "times": times}
+
+
 def main() -> int:
     try:
         import torch
@@ -1685,7 +1969,7 @@ def main() -> int:
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     emit({"device": kind, "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda, "removed_env": clear_port_env()})
 
     t0 = time.perf_counter()
     _lib.get_lib()
@@ -1755,10 +2039,16 @@ def main() -> int:
 
     t = time.perf_counter()
     routes = run_encoder_routes(decoded, names, enc_expected, smi)
-    del decoded
     emit({"phase": 10, "seconds": time.perf_counter() - t})
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    p11 = run_phase11(decoded, enc_expected, smi)
+    del decoded
+    emit({"phase": 11, "seconds": time.perf_counter() - t, **p11["times"]})
     mesh_launches = {**mesh["decode"]["two_shards"]["launches"], **mesh["encode"]["launches"]}
     shard_checks = mesh["shard_checks"]
+    soak_checks = p11["soak"]["kernel_checks"]
 
     launches = {**e2e["launches"], **enc["launches"], **route["launches"]}
     kernels = [
@@ -1766,11 +2056,15 @@ def main() -> int:
          "replaces": KERNELS[k], "path": KERNEL_PATHS[k], "launches": launches[k],
          "bench_launches": bench["launches"].get(k, 0),
          "mesh_launches": mesh_launches.get(k, 0),
+         "soak_launches": p11["soak"]["launches"].get(k, 0),
          "route_launches": ({r: n[k] for r, n in routes["launches"].items()}
                             if k in ENCODE_KERNELS else None),
          "mesh_max_abs_err": shard_checks[k]["max_abs_err"] if k in shard_checks else None,
          "mesh_plain_calls": (shard_checks[k]["compared_by_stream"]
                               if k in shard_checks else None),
+         "soak_max_abs_err": soak_checks[k]["max_abs_err"] if k in soak_checks else None,
+         "soak_plain_calls": (len(soak_checks[k]["compared_calls"])
+                              if k in soak_checks else None),
          "max_abs_err": checks[k]["max_abs_err"], "calls": checks[k]["calls"],
          "plain_calls": len(checks[k]["compared_calls"]),
          "ms": checks[k]["ms_all_calls"], "device_ms": checks[k].get("device_ms"),

@@ -1134,3 +1134,45 @@ def test_device_pack_from_the_worker_runs_on_the_dispatch_device(cuda, monkeypat
     for on_main, current, stream, default, tensor_dev in seen:
         assert not on_main and current == dev.index and tensor_dev == dev
         assert stream.device == dev and stream != default
+
+
+# ---- decode_frames and the fuzz batches (scripts/soak_torch.py) ----
+
+
+@pytest.mark.parametrize("name", ["hires24.m4a", "raw16.m4a", "mono16.m4a"])
+def test_decode_frames_kernel_matches_plain(cuda, name):
+    """``decode_frames`` (the metadata as FrameMetaArrays on the card)
+    through the kernels and the plain versions, and against
+    ``decode_frames_packed``: extra bits and raw frames (``bulk_bits``),
+    mono lanes."""
+    from alacnet_tpu_torch.batch import _collect
+    from alacnet_tpu_torch.codec.framemeta_vec import parse_frame_headers_vec
+    from alacnet_tpu_torch.ops.frame_decode import (
+        FrameMetaArrays, decode_frames, decode_frames_packed,
+    )
+
+    info, blob = _collect(io.BytesIO((SMOKE / name).read_bytes()))
+    offs, szs = info.tables.frame_file_offsets(), info.tables.frame_byte_sizes
+    fb = parse_frame_headers_vec([blob[o: o + s].tobytes() for o, s in zip(offs, szs)],
+                                 info.params)
+    words = torch.from_numpy(fb.words.view(np.int32)).to(cuda)
+    meta = FrameMetaArrays.from_batch(fb, cuda)
+    S = info.params.max_samples_per_frame
+    got, n = decode_frames(words, meta, S, kernel="cuda")
+    want, wn = decode_frames(words, meta, S, kernel="torch")
+    packed, pn = decode_frames_packed(words, FrameMetaArrays.pack_host(fb), S, kernel="cuda")
+    assert torch.equal(got, want) and torch.equal(n, wn)
+    assert torch.equal(got, packed) and torch.equal(n, pn)
+
+
+def test_fuzz_batches_kernel_matches_plain(cuda):
+    """The fuzz batches through ``decode_frames``, kernel against plain:
+    every lane whose cursors stay in the row equal (``fuzz_routes``)."""
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "scripts"))
+    import soak_torch
+
+    for rec in soak_torch.fuzz_routes("cuda"):
+        assert rec["equal"], rec
+        assert rec["compared"] > 0.9 * rec["lanes"], rec

@@ -434,3 +434,171 @@ def test_cli_pack_flags_give_the_default_bytes(flags, tmp_path, capsys):
             (tmp_path / "b" / f"in{i}.m4a").read_bytes()
     assert (tmp_path / "one.m4a").read_bytes() == (tmp_path / "a" / "in0.m4a").read_bytes()
     capsys.readouterr()
+
+
+# ------------------------------------------ route variables (ALAC_ENC_*)
+
+#: One setting of each route variable, and of the JAX package's pair
+#: writer interleave, which the port does not read (a speed-only choice:
+#: the JAX writer changes, the bytes do not).
+ROUTE_ENVS = [
+    {}, {"ALAC_ENC_PAIR": "0"}, {"ALAC_ENC_PAIR": "1"}, {"ALAC_ENC_QUAD": "1"},
+    {"ALAC_ENC_DEVICE_PACK": "1"},
+    {"ALAC_ENC_DEVICE_PACK": "1", "ALAC_ENC_PACK_IMPL": "scatter"},
+    {"ALAC_ENC_DEVICE_PACK": "1", "ALAC_ENC_PACK_IMPL": "gather"},
+    {"ALAC_ENC_KERNEL": "xla"},
+    {"ALAC_ENC_PAIR_ILV": "2"}, {"ALAC_ENC_PAIR_ILV": "4"}, {"ALAC_ENC_PAIR_ILV": "8"},
+    {"ALAC_ENC_PAIR_ILV": "auto"},
+]
+ROUTE_VARS = ("ALAC_ENC_KERNEL", "ALAC_ENC_PAIR", "ALAC_ENC_QUAD", "ALAC_ENC_DEVICE_PACK",
+              "ALAC_ENC_PACK_IMPL", "ALAC_ENC_PAIR_ILV", "ALAC_NO_NATIVE", "ALAC_NATIVE")
+
+
+def _route_frames():
+    """tests/test_encode_pairs.py's interleave input: eleven 16-bit
+    stereo frames, one of them mono inside an 8-frame group, one with an
+    odd tail (both break the packer's lockstep)."""
+    pcm = tone(S * 11, 2, 16, noise=60.0)
+    frames = [pcm[i * S: (i + 1) * S] for i in range(11)]
+    frames[3] = frames[3][:, :1]
+    frames[9] = frames[9][: S // 2 + 3]
+    return frames
+
+
+@pytest.fixture
+def route_env(monkeypatch):
+    for name in ROUTE_VARS:
+        monkeypatch.delenv(name, raising=False)
+
+    def set_env(env):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+    return set_env
+
+
+@needs_native
+@pytest.mark.parametrize("env", ROUTE_ENVS,
+                         ids=["-".join(f"{k[5:]}={v}" for k, v in e.items()) or "none"
+                              for e in ROUTE_ENVS])
+def test_route_variable_bytes_match_jax(env, route_env, monkeypatch):
+    """Each variable takes the port to the route it names (the packer that
+    ran) and to the JAX encoder's bytes under the same variable."""
+    frames = _route_frames()
+    params = default_cookie(44100, 16, 2, max_samples_per_frame=S)
+    cfg = at.EncoderConfig(order=4)
+    route_env(env)
+    packers = []
+    for name in ("_pack_host", "_pack_host_pairs", "_pack_device"):
+        monkeypatch.setattr(ed, name, lambda *a, name=name, real=getattr(ed, name): (
+            packers.append(name) or real(*a)))
+    timings = {}
+    got = ed.encode_frames_device(frames, params, cfg, timings=timings, device="cpu")
+    want = ("_pack_device" if "ALAC_ENC_DEVICE_PACK" in env else
+            "_pack_host" if env.get("ALAC_ENC_PAIR") == "0" else "_pack_host_pairs")
+    assert packers == [want]
+    if "ALAC_ENC_QUAD" in env:
+        assert timings["quad_chunks"] == 1
+    assert got == encode_frames_tpu(frames, jax_cookie(44100, 16, 2, S),
+                                    JaxEncoderConfig(order=4))
+    assert got == _host(frames, params, cfg)
+
+
+def test_device_pack_variable_picks_the_device_packer(route_env, monkeypatch):
+    """``ALAC_ENC_PACK_IMPL`` names the device packer that runs, in the
+    port and in the JAX package; unset, both take scatter."""
+    frames = [tone(S, 2, 16, seed=s) for s in range(3)]
+    params = default_cookie(44100, 16, 2, max_samples_per_frame=S)
+    for impl in (None, "gather", "scatter"):
+        route_env({"ALAC_ENC_DEVICE_PACK": "1", **({"ALAC_ENC_PACK_IMPL": impl} if impl else {})})
+        ran = []
+        for mod, name in ((tenc, "pack_frames_device"), (tenc, "pack_frames_device_scatter"),
+                          (jenc, "pack_frames_device"), (jenc, "pack_frames_device_scatter")):
+            monkeypatch.setattr(mod, name, lambda *a, real=getattr(mod, name), tag=(mod, name),
+                                **k: ran.append(tag) or real(*a, **k))
+        got = ed.encode_frames_device(frames, params, at.EncoderConfig(order=4), device="cpu")
+        jgot = encode_frames_tpu(frames, jax_cookie(44100, 16, 2, S), JaxEncoderConfig(order=4))
+        name = "pack_frames_device" if impl == "gather" else "pack_frames_device_scatter"
+        assert ran == [(tenc, name), (jenc, name)], impl
+        assert got == jgot == _host(frames, params, at.EncoderConfig(order=4))
+        monkeypatch.undo()
+
+
+def test_no_native_variable_bytes_match_jax(route_env, monkeypatch):
+    """``ALAC_NO_NATIVE=1``: no pair planes and no native packer on either
+    side (the Python packer), the same bytes."""
+    from alacnet_tpu import native as jnative
+
+    frames = _route_frames()[:4]
+    params = default_cookie(44100, 16, 2, max_samples_per_frame=S)
+    route_env({"ALAC_NO_NATIVE": "1"})
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_tried", False)
+    packed = []
+    monkeypatch.setattr(ed, "_pack_py", lambda *a, real=ed._pack_py: packed.append(1) or real(*a))
+    got = ed.encode_frames_device(frames, params, at.EncoderConfig(order=4), device="cpu")
+    assert packed == [1]
+    assert got == encode_frames_tpu(frames, jax_cookie(44100, 16, 2, S),
+                                    JaxEncoderConfig(order=4))
+
+
+def test_fused_kernel_variable_raises_on_the_cpu(route_env):
+    """``ALAC_ENC_KERNEL=fused`` demands the CUDA kernels: the port has no
+    interpreter for them, so a CPU encode raises (the JAX package would
+    interpret its Pallas kernels)."""
+    route_env({"ALAC_ENC_KERNEL": "fused"})
+    params = default_cookie(44100, 16, 2, max_samples_per_frame=S)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ed.encode_frames_device([tone(S, 2, 16)], params, device="cpu")
+    # an explicit kernel wins over the variable
+    ed.encode_frames_device([tone(S, 2, 16)], params, device="cpu", kernel="auto")
+
+
+@needs_native
+@pytest.mark.parametrize("env", [{"ALAC_ENC_QUAD": "1"}, {"ALAC_ENC_PAIR": "0"}],
+                         ids=["quads", "classic"])
+def test_route_variables_reach_the_mesh_branch(env, route_env, monkeypatch):
+    """Three CPU shards: the variables choose the mesh path's planes
+    (``encode_stages_pcm_spmd(pairs=, quads=)``) as they do without one."""
+    frames = _music_and_noise(np.random.default_rng(17), 7)
+    params = default_cookie(44100, 16, 2, max_samples_per_frame=S)
+    cfg = at.EncoderConfig(order=6)
+    route_env(env)
+    seen = []
+    real = tmesh.encode_stages_pcm_spmd
+    monkeypatch.setattr(tmesh, "encode_stages_pcm_spmd", lambda *a, **k: (
+        seen.append((k["pairs"], k["quads"])) or real(*a, **k)))
+    timings = {}
+    got = ed.encode_frames_device(frames, params, cfg, timings=timings,
+                                  mesh=tmesh.Mesh(["cpu"] * 3))
+    assert seen[0] == ((True, True) if "ALAC_ENC_QUAD" in env else (False, False))
+    assert timings.get("quad_chunks", 0) == ("ALAC_ENC_QUAD" in env)
+    assert got == _host(frames, params, cfg)
+
+
+@pytest.mark.parametrize("cmd", ["encode", "batch-encode"])
+def test_cli_route_flags_default_to_the_variables(cmd, tmp_path, monkeypatch):
+    """Left out, ``--pack`` and ``--quads`` reach the encoder as None, so
+    the encoder resolves them from the variables."""
+    from alacnet_tpu_torch import cli
+    from alacnet_tpu_torch.codec import encoder as tencoder
+    from alacnet_tpu_torch.pcm import write_wav
+
+    class Recorded(Exception):
+        pass
+
+    def record(*a, **k):
+        seen.append((k["pack"], k["quads"]))
+        raise Recorded
+
+    wav = tmp_path / "in.wav"
+    with open(wav, "wb") as f:
+        write_wav(f, tone(S, 2, 16), 44100, 16, 2)
+    seen = []
+    monkeypatch.setattr(tencoder, "encode_m4a" if cmd == "encode" else "encode_files", record)
+    args = ([str(wav), str(tmp_path / "o.m4a")] if cmd == "encode"
+            else [str(wav), "--out-dir", str(tmp_path / "d")])
+    for flags, want in (([], (None, None)), (["--pack", "gather", "--quads"], ("gather", True))):
+        seen.clear()
+        with pytest.raises(Recorded):
+            cli.main([cmd, *args, "--device", "cpu", *flags])
+        assert seen == [want]

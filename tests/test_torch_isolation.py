@@ -101,6 +101,23 @@ def test_bench_imports_no_jax():
     assert res.stdout.strip() == "ok"
 
 
+def test_soak_script_imports_no_jax():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import soak_torch\n"
+        "payloads, nchs, params = soak_torch.fuzz_payloads(16, 4, 101)\n"
+        "assert len(payloads) == 4 and params.sample_size == 16\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'alacnet_tpu')"
+        " and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = _run(["-c", code], cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def _no_json_record(stdout: str) -> bool:
     for line in stdout.splitlines():
         try:
@@ -291,7 +308,8 @@ def _reference_path_literals(path: pathlib.Path) -> list[str]:
 
 
 def test_port_builds_no_path_into_the_reference(tmp_path):
-    files = sorted((ROOT / "alacnet_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "alacnet_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "soak_torch.py"]
     assert len(files) > 20
     bad = [b for f in files for b in _reference_path_literals(f)]
     assert not bad, bad

@@ -213,7 +213,6 @@ def test_encode_frames_device_mesh_byte_identical(ragged_frames, shards, pairs, 
     the pair planes and with the classic ones."""
     frames, params, cfg, host, single = ragged_frames
     assert single == host
-    monkeypatch.setattr(ed, "_dispatch", functools.partial(ed._dispatch, pairs=pairs))
     seen = []
     real_pack = ed._pack
 
@@ -222,7 +221,7 @@ def test_encode_frames_device_mesh_byte_identical(ragged_frames, shards, pairs, 
         return real_pack(prep, fetch, timings)
 
     monkeypatch.setattr(ed, "_pack", pack)
-    got = ed.encode_frames_device(frames, params, cfg, mesh=cpu_mesh(shards))
+    got = ed.encode_frames_device(frames, params, cfg, mesh=cpu_mesh(shards), pairs=pairs)
     assert got == host
     assert seen == [(-(-17 // shards) * shards, 17, pairs)]
 
