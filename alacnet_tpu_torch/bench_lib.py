@@ -118,6 +118,9 @@ DEVICE_FIELDS = {
         "encode_devpack_device_runs_s", "encode_devpack_scatter_runs_s",
     ),
 }
+#: ``run_benchmark``'s fields from its traced pass (``trace_dir``):
+#: ``None`` off the card.
+PROFILE_FIELDS = ("device_busy_ms", "device_busy_share", "device_ms_by_op")
 #: The fields of :func:`summary`: the headlines and what explains them.
 SUMMARY_FIELDS = (
     "value", "unit", "e2e_msps_quartiles", "e2e_sink_msamples_per_s",
@@ -470,8 +473,10 @@ def run_benchmark(
     batch: int = 4096,
     seconds_of_audio: float | None = None,
     bits: int = 16,
+    channels: int = 2,
     frame_samples: int = 4096,
     repeats: int = 3,
+    include_host: bool = False,
     kind: str = "music",
     dispersion: int = MIN_REPEATS,
     device: str = "cuda",
@@ -481,13 +486,21 @@ def run_benchmark(
     """Device-stage decode throughput of one corpus kind.
 
     ``batch`` frames (``seconds_of_audio`` of 44.1 kHz audio, when
-    given), cycling through 32 distinct frames of ``kind``, planned and
-    staged as ``decode_blob`` does with ``batch_limit=batch``; then
-    ``max(PASSES, repeats)`` passes between CUDA events, per run, after
-    a warm-up pass whose output is the lossless gate.  The published
-    rate is the median of ``max(1, dispersion)`` runs (``device_runs_s``);
-    ``dispersion`` > 1 adds a ``dispersion`` sub-record (min, median,
-    max, every run).  ``trace_dir``: one more pass under ``capture_trace``.
+    given), cycling through 32 distinct ``channels``-channel frames of
+    ``kind``, planned and staged as ``decode_blob`` does with
+    ``batch_limit=batch``; then ``max(PASSES, repeats)`` passes between
+    CUDA events, per run, after a warm-up pass whose output is the
+    lossless gate.  The published rate is the median of ``max(1,
+    dispersion)`` runs (``device_runs_s``); ``dispersion`` > 1 adds a
+    ``dispersion`` sub-record (min, median, max, every run).
+    ``include_host`` adds the host stage's ``host_parse_s`` to the
+    published time, as the JAX bench does: only ``value`` (and the
+    rates derived from it) include it; ``device_s``, ``device_runs_s``
+    and the ``dispersion`` rates stay the device stage's.
+    ``trace_dir``: one more pass under ``profile_busy``, its Chrome
+    trace in ``trace_file``, its busy device time (``device_busy_ms``),
+    that time over the traced pass's wall (``device_busy_share``) and
+    its device time by op (``device_ms_by_op``).
     """
     if seconds_of_audio:
         batch = max(1, int(seconds_of_audio * 44100 / frame_samples))
@@ -495,7 +508,7 @@ def run_benchmark(
     dev = config.torch_device
     distinct, frames, params = _corpus(
         num_distinct=min(batch, 32), frame_samples=frame_samples, bits=bits,
-        kind=kind, seed=seed,
+        channels=channels, kind=kind, seed=seed,
     )
     bits = params.sample_size  # 24-bit kinds override the argument
     table, lengths = _source_table(frames, frame_samples)
@@ -511,18 +524,18 @@ def run_benchmark(
             lambda outs: _gate_device(outs, staged, src, table, lengths, dev),
             passes, max(1, dispersion),
         )
-        trace_file = None
+        profile = {}
         if trace_dir is not None:
             bw = blob_words(staged.blob, dev, max_w=staged.max_w)
-            trace_file = profile_busy(
+            profile = profile_busy(
                 lambda: [launch_frame_batch(b, frame_samples, config, bw)
                          for b in staged.batches],
                 dev, trace_dir,
-            )["trace_file"]
+            )
     device_s = msps = disp = None
     if runs_s is not None:
         device_s = statistics.median(runs_s)
-        msps = total_samples / device_s / 1e6
+        msps = total_samples / (device_s + (host_parse_s if include_host else 0)) / 1e6
         if dispersion > 1:
             rates = sorted(total_samples / s / 1e6 for s in runs_s)
             disp = {"n": len(rates), "min_msps": rates[0],
@@ -531,8 +544,9 @@ def run_benchmark(
     _release(dev)
     return {
         **({"dispersion": disp} if disp else {}),
-        "metric": "decode throughput, device stage (%d-bit 2ch, %s corpus)"
-        % (bits, kind),
+        "metric": "decode throughput, %s (%d-bit %dch, %s corpus)"
+        % ("host parse + device stage" if include_host else "device stage",
+           bits, channels, kind),
         "value": msps,
         "unit": "Msamples/s",
         "vs_baseline": msps / NORTH_STAR_MSAMPLES if msps else None,
@@ -545,11 +559,13 @@ def run_benchmark(
         "host_enqueue_s": statistics.median(enqueue_s) if enqueue_s else None,
         "passes": passes,
         "host_parse_s": host_parse_s,
+        "include_host": include_host,
         "repeats": repeats,
         "device": _device_record(dev),
         "fused_kernel": launches.get("rice_lpc", 0) > 0,
         "kernel_launches": launches,
-        "trace_file": trace_file,
+        "trace_file": profile.get("trace_file"),
+        **{k: profile[k] for k in PROFILE_FIELDS if profile},
         "parity_ok": parity_ok,
     }
 

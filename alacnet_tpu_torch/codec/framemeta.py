@@ -52,6 +52,10 @@ class FrameBatch:
     def batch(self) -> int:
         return int(self.words.shape[0])
 
+    @property
+    def max_samples(self) -> int:
+        return int(self.n_samples.max()) if self.batch else 0
+
 
 def parse_frame_headers(
     payloads: list[bytes],

@@ -88,18 +88,28 @@ class DecodeConfig:
         "ALAC_KERNEL", "auto", KERNEL_CHOICES + tuple(KERNEL_ALIASES), KERNEL_ALIASES))
 
     def __post_init__(self):
-        if self.kernel not in KERNEL_CHOICES:
-            raise ValueError(
-                f"kernel must be one of {KERNEL_CHOICES}, got {self.kernel!r}"
-            )
-        if self.batch_limit <= 0:
-            raise ValueError("batch_limit must be positive")
+        self._check()
         if self.torch_device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"DecodeConfig(device={self.device!r}) needs a CUDA device, "
                 "and torch.cuda.is_available() is False; pass device='cpu' "
                 "to decode with the plain torch versions"
             )
+
+    def _check(self) -> None:
+        if self.kernel not in KERNEL_CHOICES:
+            raise ValueError(
+                f"kernel must be one of {KERNEL_CHOICES}, got {self.kernel!r}"
+            )
+        if self.batch_limit <= 0:
+            raise ValueError("batch_limit must be positive")
+
+    def validate(self) -> "DecodeConfig":
+        """``self``, after the checks construction makes (the kernel
+        route, a positive ``batch_limit``): a field changed since then
+        raises here."""
+        self._check()
+        return self
 
     @property
     def torch_device(self) -> torch.device:

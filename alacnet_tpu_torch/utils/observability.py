@@ -141,7 +141,8 @@ def profile_busy(run, device="cuda", trace_dir: str | None = None,
                  top: int = 12) -> dict:
     """Run ``run()`` once under the profiler; the device's busy time
     (the sum of its kernels and copies), that time over the run's wall,
-    and the ``top`` busiest device ops in ms.
+    and the ``top`` busiest device ops in ms (ops whose names share
+    their first 60 characters summed as one).
 
     Only a CUDA device is measured: for any other device the busy
     fields are ``None`` (a CPU time is never reported under a device's
@@ -172,7 +173,8 @@ def profile_busy(run, device="cuda", trace_dir: str | None = None,
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
         if dev_us > 0:
             busy_us += dev_us
-            by_op[ev.key[:60]] = dev_us / 1e3
+            key = ev.key[:60]
+            by_op[key] = by_op.get(key, 0.0) + dev_us / 1e3
     if busy_us:
         out.update(
             device_busy_ms=busy_us / 1e3,

@@ -83,7 +83,23 @@ on failure, each printing its seconds:
    its record goes on a ``bench`` line.  It fails unless ``parity_ok``
    holds, every headline is above 0, the e2e device-busy share is a
    measured number, the trace names the ``rice_lpc`` kernel and each
-   kernel of the bench's paths (all but ``rice_emit``) launched;
+   kernel of the bench's paths (all but ``rice_emit``) launched.  Then
+   the mono device stage, ``run_benchmark(kind="music", channels=1)``
+   at the bench's defaults (4,096 frames of 4,096 samples in one span)
+   with one traced pass, launch counts set to 0 just before and read
+   just after (the ``kernels`` line's ``bench_mono_launches``) and the
+   first ``MONO_RECORDED`` calls of each of its kernel wrappers
+   recorded (the gate pass's and the untimed run's, before the timed
+   runs): its record goes on a ``bench_mono`` line, with the traced
+   pass's busy device time and share and its rate over the bench's
+   stereo music rate; it fails unless ``parity_ok`` holds, its rate is
+   above 0, the busy share is a measured number, and ``rice_lpc`` and
+   ``pack_rows`` launched equally often (one channel pass a span).  The
+   recorded calls run again through the kernel and the plain version,
+   bit for bit, the first always, the next while the kernel's plain
+   total stays under ``MONO_PLAIN_BUDGET_S`` (``bench_mono_kernel_check``
+   lines; the ``kernels`` line's ``bench_mono_max_abs_err`` and
+   ``bench_mono_plain_calls``);
 9. mesh — data parallelism over frames (``parallel/mesh.py``,
    ``parallel/distributed.py``): the pooled smoke decode through
    ``decode_streams(mesh=)`` over every visible card and over two shards
@@ -1128,7 +1144,67 @@ def run_bench() -> dict:
     missing = [k for k in BENCH_KERNELS if launches.get(k, 0) == 0]
     if missing:
         raise RuntimeError(f"the bench launched no {missing} kernel")
-    return {"launches": launches, "trace_bytes": len(trace_text)}
+    mono = run_bench_mono(rec["device_msps_by_kind"]["music"])
+    return {"launches": launches, "mono": mono, "trace_bytes": len(trace_text)}
+
+
+#: The kernels of the mono device stage, where the pipeline calls them.
+MONO_KERNELS = ("pack_rows", "rice_lpc")
+MONO_CALL_SITES = {k: CALL_SITES[k] for k in MONO_KERNELS}
+#: Calls of each kernel the mono bench records: the gate pass's and the
+#: untimed run's first, made before the timed runs (holding a timed
+#: pass's rows would make the next pass allocate anew).
+MONO_RECORDED = 2
+#: Seconds of plain-version runs each kernel's mono check may spend past
+#: its first call (the plain rice_lpc takes ~10 s a call at 4,096 lanes
+#: on the H100).
+MONO_PLAIN_BUDGET_S = 15.0
+
+
+def run_bench_mono(stereo_music_msps: float) -> dict:
+    """Phase 8's mono device stage: ``run_benchmark(kind="music",
+    channels=1)`` at the bench's defaults with one traced pass, its
+    launch counts set to 0 just before and read just after and the
+    first ``MONO_RECORDED`` calls of each kernel wrapper recorded; then
+    those calls through kernel and plain version (``compare_recorded``).
+    Returns the launches and the kernel checks."""
+    import torch
+
+    from alacnet_tpu_torch import bench_lib
+    from alacnet_tpu_torch.ops.cuda import _lib
+
+    calls = {}
+
+    def make(key, orig):
+        def rec(*args, **kwargs):
+            if len(calls.setdefault(key, [])) < MONO_RECORDED:
+                calls[key].append((args, kwargs, 0))
+            return orig(*args, **kwargs)
+        return rec
+
+    with tempfile.TemporaryDirectory() as tmp, wrapped(MONO_CALL_SITES, make):
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        mono = bench_lib.run_benchmark(batch=4096, kind="music", channels=1, trace_dir=tmp)
+        launches = dict(_lib.LAUNCHES)
+    emit({"bench_mono": mono, "stereo_music_msps": stereo_music_msps,
+          "mono_over_stereo": (mono["value"] / stereo_music_msps
+                               if isinstance(mono["value"], float) else None)})
+    if not mono["parity_ok"]:
+        raise RuntimeError("the mono bench's lossless gate failed")
+    if not (isinstance(mono["value"], float) and mono["value"] > 0):
+        raise RuntimeError(f"the mono bench's rate is not above 0: {mono['value']!r}")
+    busy = mono["device_busy_share"]
+    if not (isinstance(busy, float) and busy > 0):
+        raise RuntimeError(f"the mono bench's device-busy share is not measured: {busy!r}")
+    n = [launches.get(k, 0) for k in MONO_KERNELS]
+    if 0 in n or n[0] != n[1]:
+        raise RuntimeError(f"the mono bench's launches are not one rice_lpc pass a span: "
+                           f"{launches}")
+    checks = compare_recorded(calls, MONO_KERNELS, MONO_PLAIN_BUDGET_S, "bench_mono")
+    del calls
+    torch.cuda.empty_cache()
+    return {"launches": launches, "checks": checks}
 
 
 #: The two-shard mesh of phase 9: two streams on the first card.
@@ -1783,23 +1859,24 @@ def record_soak_calls(calls):
     return make, per_batch, per_run
 
 
-def compare_soak_calls(calls, budget_s) -> dict:
-    """Phase 11 (a)'s kernel checks: the calls the soak made
-    (``record_soak_calls``) run again through the kernel and through the
-    plain version, bit for bit — the first call of each group (one of
-    each decode batch's formats before a second), then the other calls,
-    while the kernel's plain total stays under ``budget_s`` (its first
-    call always).  Fails unless every kernel of ``SOAK_KERNELS`` was
-    compared at least once."""
+def compare_recorded(calls, kernels, budget_s, label: str) -> dict:
+    """Recorded wrapper calls (``calls[kernel]``: (args, kwargs, group)
+    each; phase 8's mono bench, phase 11 (a)'s soak) run again through
+    the kernel and through the plain version, bit for bit — the first
+    call of each group (one of each decode batch's formats before a
+    second), then the other calls, while the kernel's plain total stays
+    under ``budget_s`` (its first call always); ``<label>_kernel_check``
+    lines.  Fails unless every kernel of ``kernels`` was compared at
+    least once."""
     import torch
 
     fns = {**decode_fns(), **enc_fns()}
     torch.cuda.synchronize()
     results = {}
-    for name in SOAK_KERNELS:
+    for name in kernels:
         recorded = calls.get(name, [])
         if not recorded:
-            raise RuntimeError(f"soak: no {name} call recorded")
+            raise RuntimeError(f"{label}: no {name} call recorded")
         fn = fns[name]
         # The first call of each group, those of formats not yet taken
         # first (a decode group's formats are its second field), then the rest.
@@ -1825,7 +1902,7 @@ def compare_soak_calls(calls, budget_s) -> dict:
             )
             err = max(err, max_abs_err(name, got[0], plain[0]))
             if err != 0:  # the tolerance: bit for bit
-                raise RuntimeError(f"soak {name} call {idx}: kernel differs from plain, "
+                raise RuntimeError(f"{label} {name} call {idx}: kernel differs from plain, "
                                    f"max |err| {err}")
             compared.append(idx)
             groups.add(group)
@@ -1837,7 +1914,7 @@ def compare_soak_calls(calls, budget_s) -> dict:
         if name == "rice_lpc":
             results[name]["max_orders"] = sorted(
                 {recorded[i][1].get("max_order") for i in compared}, key=str)
-        emit({"soak_kernel_check": name, **results[name]})
+        emit({f"{label}_kernel_check": name, **results[name]})
     return results
 
 
@@ -1845,7 +1922,7 @@ def run_soak_phase(card: str) -> dict:
     """Phase 11 (a): ``scripts/soak_torch.run_soak`` on the card, the
     launch counts set to 0 just before and read just after, each kernel
     wrapper call recorded; then the recorded calls through kernel and
-    plain version (``compare_soak_calls``)."""
+    plain version (``compare_recorded``)."""
     import torch
 
     from alacnet_tpu_torch.ops.cuda import _lib
@@ -1870,7 +1947,7 @@ def run_soak_phase(card: str) -> dict:
     rec.update(launches=launches, card=card)
     emit({"soak": rec})
     t = time.perf_counter()
-    rec["kernel_checks"] = compare_soak_calls(calls, SOAK_PLAIN_BUDGET_S)
+    rec["kernel_checks"] = compare_recorded(calls, SOAK_KERNELS, SOAK_PLAIN_BUDGET_S, "soak")
     rec["kernel_checks_s"] = time.perf_counter() - t
     del calls
     torch.cuda.empty_cache()
@@ -2049,12 +2126,18 @@ def main() -> int:
     mesh_launches = {**mesh["decode"]["two_shards"]["launches"], **mesh["encode"]["launches"]}
     shard_checks = mesh["shard_checks"]
     soak_checks = p11["soak"]["kernel_checks"]
+    mono_checks = bench["mono"]["checks"]
 
     launches = {**e2e["launches"], **enc["launches"], **route["launches"]}
     kernels = [
         {"name": k, "route": "cuda", "source": f"alacnet_tpu_torch/csrc/{k}.cu",
          "replaces": KERNELS[k], "path": KERNEL_PATHS[k], "launches": launches[k],
          "bench_launches": bench["launches"].get(k, 0),
+         "bench_mono_launches": bench["mono"]["launches"].get(k, 0),
+         "bench_mono_max_abs_err": (mono_checks[k]["max_abs_err"]
+                                    if k in mono_checks else None),
+         "bench_mono_plain_calls": (len(mono_checks[k]["compared_calls"])
+                                    if k in mono_checks else None),
          "mesh_launches": mesh_launches.get(k, 0),
          "soak_launches": p11["soak"]["launches"].get(k, 0),
          "route_launches": ({r: n[k] for r, n in routes["launches"].items()}

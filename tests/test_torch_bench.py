@@ -5,6 +5,7 @@ JAX package's, and its records at a tiny size (every device-timed field
 
 import functools
 import json
+import time
 
 import pytest
 
@@ -19,13 +20,16 @@ from alacnet_tpu_torch.codec.cookie import default_cookie  # noqa: E402
 S = 256
 
 
+@pytest.mark.parametrize("channels", [1, 2])
 @pytest.mark.parametrize("kind", bench_lib.CORPUS_KINDS)
-def test_corpus_frames_match_jax(kind):
-    want, want_params = jax_bench.make_corpus_frames(num_distinct=4, frame_samples=S, kind=kind)
-    got, params = bench_lib.make_corpus_frames(num_distinct=4, frame_samples=S, kind=kind)
+def test_corpus_frames_match_jax(kind, channels):
+    want, want_params = jax_bench.make_corpus_frames(
+        num_distinct=4, frame_samples=S, kind=kind, channels=channels)
+    got, params = bench_lib.make_corpus_frames(
+        num_distinct=4, frame_samples=S, kind=kind, channels=channels)
     assert got == want
-    assert (params.sample_size, params.sample_rate) == (
-        want_params.sample_size, want_params.sample_rate)
+    assert (params.sample_size, params.sample_rate, params.num_channels_cookie) == (
+        want_params.sample_size, want_params.sample_rate, want_params.num_channels_cookie)
 
 
 @pytest.mark.parametrize("kind,seed", [("orders", 3), ("hires24", 11)])
@@ -80,6 +84,49 @@ def test_run_benchmark_on_the_cpu(kind):
     assert rec["host_parse_s"] > 0 and rec["fused_kernel"] is False
     assert f"{params.sample_size}-bit" in rec["metric"]
     assert "dispersion" not in rec and rec["trace_file"] is None
+
+
+def test_run_benchmark_mono_on_the_cpu(tmp_path):
+    rec = bench_lib.run_benchmark(batch=6, frame_samples=S, channels=1, device="cpu",
+                                  trace_dir=str(tmp_path))
+    _check_cpu_record(rec, "run_benchmark")
+    _, frames, params = bench_lib._corpus(num_distinct=6, frame_samples=S, channels=1)
+    assert params.num_channels_cookie == 1 and all(f.shape[-1] == 1 for f in frames)
+    assert rec["total_samples"] == sum(len(f) for f in frames)
+    assert "16-bit 1ch, music corpus" in rec["metric"]
+    assert rec["include_host"] is False
+    # the traced pass: a trace file, and no device time off the card
+    assert rec["trace_file"].startswith(str(tmp_path))
+    assert all(rec[k] is None for k in bench_lib.PROFILE_FIELDS)
+
+
+def _time_stage(monkeypatch) -> list:
+    """The wall of each ``bench_lib._stage`` call from here on."""
+    walls, stage = [], bench_lib._stage
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = stage(*args, **kwargs)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    monkeypatch.setattr(bench_lib, "_stage", timed)
+    return walls
+
+
+@pytest.mark.parametrize("include_host", [False, True])
+def test_run_benchmark_records_include_host(include_host, monkeypatch):
+    stage_s = _time_stage(monkeypatch)
+    t0 = time.perf_counter()
+    rec = bench_lib.run_benchmark(batch=4, frame_samples=S, kind="silence",
+                                  include_host=include_host, device="cpu")
+    wall = time.perf_counter() - t0
+    _check_cpu_record(rec, "run_benchmark")
+    assert rec["include_host"] is include_host
+    assert ("host parse" in rec["metric"]) is include_host
+    assert "16-bit 2ch" in rec["metric"]
+    # host_parse_s spans the host stage: no shorter than it, inside the call
+    assert len(stage_s) == 1 and 0 < stage_s[0] <= rec["host_parse_s"] < wall
 
 
 def test_run_e2e_benchmark_on_the_cpu():

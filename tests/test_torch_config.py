@@ -96,6 +96,28 @@ def test_bad_decode_value_raises_in_both(monkeypatch, name, value):
         DecodeConfig(device="cpu")
 
 
+def test_validate_returns_the_config():
+    j, t = jconfig.DecodeConfig(), DecodeConfig(device="cpu")
+    assert j.validate() is j and t.validate() is t
+
+
+@pytest.mark.parametrize("field,bad", [("kernel", "gpu"), ("batch_limit", 0),
+                                       ("batch_limit", -4)])
+def test_validate_raises_on_a_bad_field_in_both(field, bad):
+    with pytest.raises(ValueError):
+        jconfig.DecodeConfig(**{field: bad}).validate()
+    with pytest.raises(ValueError):
+        DecodeConfig(device="cpu", **{field: bad}).validate()
+    # a field set after construction, on the frozen dataclass
+    j, t = jconfig.DecodeConfig(), DecodeConfig(device="cpu")
+    object.__setattr__(j, field, bad)
+    object.__setattr__(t, field, bad)
+    with pytest.raises(ValueError):
+        j.validate()
+    with pytest.raises(ValueError):
+        t.validate()
+
+
 def test_kernel_variable_takes_both_packages_names(monkeypatch):
     for value, want in (("fused", "cuda"), ("xla", "torch"), ("cuda", "cuda"),
                         ("torch", "torch"), ("auto", "auto")):

@@ -907,6 +907,48 @@ def test_bench_music_on_the_card(cuda):
     assert rec["kernel_launches"]["rice_lpc"] > 0 and rec["kernel_launches"]["pack_rows"] > 0
 
 
+def test_bench_mono_with_host_on_the_card(cuda, tmp_path, monkeypatch):
+    """``run_benchmark(channels=1, include_host=True)``: the mono corpus
+    through the kernels, the host stage in the published rate only
+    (below the device stage's own), ``host_parse_s`` spanning the host
+    stage, and the traced pass's busy device time."""
+    import time
+
+    from alacnet_tpu_torch import bench_lib
+
+    walls, stage = [], bench_lib._stage
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = stage(*args, **kwargs)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    monkeypatch.setattr(bench_lib, "_stage", timed)
+    t0 = time.perf_counter()
+    rec = bench_lib.run_benchmark(batch=256, kind="music", channels=1, include_host=True,
+                                  device="cuda", dispersion=2, trace_dir=str(tmp_path))
+    wall = time.perf_counter() - t0
+    dev = bench_lib.run_benchmark(batch=256, kind="music", channels=1, device="cuda",
+                                  dispersion=2)
+    assert rec["parity_ok"] is True and dev["parity_ok"] is True
+    assert rec["include_host"] is True and dev["include_host"] is False
+    assert "1ch" in rec["metric"] and rec["total_samples"] == 256 * 4096
+    assert 0 < walls[0] <= rec["host_parse_s"] < wall
+    assert rec["value"] == rec["total_samples"] / (rec["device_s"] + rec["host_parse_s"]) / 1e6
+    assert rec["value"] < dev["value"]
+    # the dispersion rates stay the device stage's
+    assert rec["dispersion"]["min_msps"] > rec["value"]
+    assert any("rice_lpc" in op for op in rec["device_ms_by_op"])
+    assert rec["device_busy_ms"] > 0 and rec["device_busy_share"] > 0
+    # ops whose names share a prefix add up: the by-op list sums to the busy time
+    by_op = sum(rec["device_ms_by_op"].values())
+    assert by_op <= rec["device_busy_ms"] * (1 + 1e-9)
+    if len(rec["device_ms_by_op"]) < 12:
+        assert by_op == pytest.approx(rec["device_busy_ms"], rel=1e-9)
+    assert rec["kernel_launches"]["rice_lpc"] > 0 and rec["kernel_launches"]["pack_rows"] > 0
+
+
 # ---------------------------------------------------------------------------
 # The mesh (parallel/mesh.py): two shards on one card, each on its stream.
 # ---------------------------------------------------------------------------

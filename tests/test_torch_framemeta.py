@@ -1,7 +1,8 @@
 """The port's scalar header parser (``codec/framemeta.parse_frame_headers``)
 against the JAX package's scalar parser and the port's vectorised twin
 (``codec/framemeta_vec.parse_frame_headers_vec``), on the committed
-fixtures and on the fuzz frames: every field equal, dtype included.  It
+fixtures and on the fuzz frames: every field equal, dtype included, and
+``max_samples`` (0 for an empty batch).  It
 must raise ``UnsupportedFormatError`` on the inputs the JAX parser
 rejects: a channel tag above 1, a prediction type other than 0, a sample
 size other than 16 or 24."""
@@ -52,8 +53,10 @@ def _jax_params(p):
 def test_scalar_parser_matches_jax_and_vec_on_fixtures(path):
     payloads, jp, tp = payloads_of(path)
     got = t_fm.parse_frame_headers(payloads, tp)
-    assert_batches_equal(j_fm.parse_frame_headers(payloads, jp), got)
+    want = j_fm.parse_frame_headers(payloads, jp)
+    assert_batches_equal(want, got)
     assert_batches_equal(t_fmv.parse_frame_headers_vec(payloads, tp), got)
+    assert got.max_samples == want.max_samples > 0
     # per-frame params, as a pooled decode passes them
     assert_batches_equal(got, t_fm.parse_frame_headers(payloads, [tp] * len(payloads)))
 
@@ -63,8 +66,16 @@ def test_scalar_parser_matches_jax_and_vec_on_fixtures(path):
 def test_scalar_parser_matches_jax_and_vec_on_fuzz(bits, count, seed):
     payloads, _, tp = soak_torch.fuzz_payloads(bits, count, seed)
     got = t_fm.parse_frame_headers(payloads, tp, max_bytes=512)
-    assert_batches_equal(j_fm.parse_frame_headers(payloads, _jax_params(tp), max_bytes=512), got)
+    want = j_fm.parse_frame_headers(payloads, _jax_params(tp), max_bytes=512)
+    assert_batches_equal(want, got)
     assert_batches_equal(t_fmv.parse_frame_headers_vec(payloads, tp, max_bytes=512), got)
+    assert got.max_samples == want.max_samples > 0
+
+
+def test_max_samples_of_an_empty_batch_is_zero():
+    _, jp, tp = payloads_of(FILES[0])
+    assert j_fm.parse_frame_headers([], jp).max_samples == 0
+    assert t_fm.parse_frame_headers([], tp).max_samples == 0
 
 
 def _first_frame(name="stereo16_order6.m4a"):
