@@ -68,6 +68,8 @@ _SIGNATURES = {
     "alac_enc_pred": [_P, _I, _I] + [_P] * 5 + [_I, _I, _P, _P],
     "alac_enc_rice": [_P, _P, _I, _I] + [_P] * 6 + [_P] * 6 + [_P],
     "alac_rice_emit": [_P, _P, _I, _I] + [_P] * 6 + [_P] * 4 + [_P],
+    "alac_dec_epilogue": [_P, _P, _I, _I] + [_P] * 4 + [_P] * 7 + [_I, _I, _I, _P, _P],
+    "alac_zero_runs": [_P, _P, _I, _I, _P, _P, _P],
 }
 
 

@@ -11,7 +11,8 @@ The counterpart of ``alacnet_tpu/ops/pallas/enc_stages.py``:
   version: ``ops/encode.rice_symbols`` -> ``merge_symbol_chunks`` ->
   ``bits = ws.sum(1)``.
 * :func:`encode_stages_fused` — runs the stages: predictor kernel,
-  the zero-run reverse cummin in torch, Rice kernel.
+  the zero-run lookahead (``csrc/zero_runs.cu``, ``ops/cuda/zero_runs.py``),
+  Rice kernel.
 
 Both kernels give a block 16 lanes and split each lane's
 work across warps that hand tiles of samples over through shared
@@ -36,11 +37,11 @@ from ..encode import (
     merge_symbol_chunks,
     predictor_errors,
     rice_symbols,
-    zero_run_lengths_sb,
 )
 from ..lpc import MAX_ORDER, LpcParams
 from . import _lib
 from .rice_lpc import order_bucket
+from .zero_runs import zero_run_lengths_fused
 
 
 def _sample_major(name: str, x: torch.Tensor, B: int, S: int) -> torch.Tensor:
@@ -145,11 +146,11 @@ def encode_stages_fused(
 
     Returns (c0, c1, c2 (B, S) int32, ws (B, S) int8, bits (B,) int32,
     bad (B,) bool).  The residual plane stays in the kernels' (S, B)
-    layout between the two launches, and the zero-run cummin runs along
+    layout between the launches, and the zero-run lookahead runs along
     its sample axis.
     """
     errs = predictor_errors_fused(
         sig, n, lp, num_samples, max_order=max_order, kernel=kernel
     )
-    zr = zero_run_lengths_sb(errs.t(), n).t()
+    zr = zero_run_lengths_fused(errs.t(), n, kernel=kernel).t()
     return rice_merge_fused(errs, zr, n, rp, num_samples, kernel=kernel)

@@ -7,7 +7,7 @@ stages of DecodeFrame (AlacFile.cs:428-719) over a lane-per-frame batch:
     Rice + LPC, channel A   (:483,486,643,646)  — kernel 2, rice_lpc
     Rice + LPC, channel B   (:653,656)          — from A's end bit
     raw-PCM path            (:498-526,663-700)  — kernel 3, bulk_bits
-    decorrelation + output  (:338-421,527-566)  — elementwise epilogue
+    decorrelation + output  (:338-421,527-566)  — kernel 7, dec_epilogue
 
 Each kernel wrapper runs its plain torch version for CPU tensors.
 Which optional stages run (extra bits, channel B, raw frames) is decided
@@ -26,9 +26,10 @@ import numpy as np
 import torch
 
 from ..utils.transfer import h2d
-from .bitops import I32, shl, signext, sra
+from .bitops import I32
 from .bitreader import gather_bits
 from .cuda.bulk_bits import bulk_bits
+from .cuda.epilogue import decode_epilogue, extend_raw
 from .cuda.rice_lpc import fused_rice_lpc
 from .lpc import MAX_ORDER
 
@@ -173,13 +174,9 @@ def _extra_bits(words, m: FrameMetaArrays, S: int):
 
 
 def _extend_raw(v, m: FrameMetaArrays):
-    """Raw-sample sign extension: plain for ss<=16, the reference's
-    hard-coded 24-bit (x ^ m) - m form for ss>16 (:512-521)."""
-    ss = m.sample_size
-    le16 = signext(v, ss[:, None])
-    mbit = 1 << 23
-    gt16 = ((v & 0xFFFFFF) ^ mbit) - mbit
-    return torch.where((ss <= 16)[:, None], le16, gt16)
+    """Raw-sample sign extension (``epilogue.extend_raw``) with the
+    lanes' sample sizes from ``m``."""
+    return extend_raw(v, m.sample_size)
 
 
 def _raw_pcm(words, m: FrameMetaArrays, S: int):
@@ -272,8 +269,6 @@ def _decode_frames_impl(words, m: FrameMetaArrays, pm: np.ndarray, num_samples: 
     Returns (samples, n, (end_a, end_b)), the last the entropy decodes'
     end bits (:func:`_entropy_channels`)."""
     S = num_samples
-    B = words.shape[0]
-    dev = words.device
     live_h = np.clip(pm[:, 2], 0, S) > 0
     comp_h = pm[:, 1] != 0
     any_extra = bool(((pm[:, 4] > 0) & comp_h & live_h).any())
@@ -288,10 +283,8 @@ def _decode_frames_impl(words, m: FrameMetaArrays, pm: np.ndarray, num_samples: 
     n_comp = torch.where(comp, n, 0)
     n_b = torch.where(m.is_stereo, n_comp, 0)
 
-    def zeros():
-        return torch.zeros((B, S), dtype=I32, device=dev)
-
     # ---- extra bits (kernel 3) ----
+    extra_a = extra_b = None  # absent planes read as zeros (kernel 7)
     if any_extra:
         ub8 = m.ub * 8
         n_eb = torch.where((m.ub > 0) & comp, n, 0)
@@ -299,59 +292,24 @@ def _decode_frames_impl(words, m: FrameMetaArrays, pm: np.ndarray, num_samples: 
             words, m.payload_pos, n_eb, ub8, torch.where(m.is_stereo, ub8, 0),
             S, kernel=kernel,
         )
-    else:
-        extra_a, extra_b = zeros(), zeros()
 
     # ---- Rice + LPC (kernel 2), channel B from A's end bit ----
     out_a, out_b, end_a, end_b = _entropy_channels(
         words, m, n_comp, n_b, S, max_order, kernel, run_b=any_b)
-    if out_b is None:
-        out_b = zeros()
 
     # ---- raw frames (kernel 3) ----
+    raw_a = raw_b = None
     if any_raw:
         n_raw = torch.where(comp, 0, n)
-        ra, rb, _ = bulk_bits(
+        raw_a, raw_b, _ = bulk_bits(
             words, m.payload_pos, n_raw, m.sample_size,
             torch.where(m.is_stereo, m.sample_size, 0), S, kernel=kernel,
         )
-        raw_a, raw_b = _extend_raw(ra, m), _extend_raw(rb, m)
-    else:
-        raw_a, raw_b = zeros(), zeros()
-    c2 = comp[:, None]
-    a = torch.where(c2, out_a, raw_a)
-    b = torch.where(c2, out_b, raw_b)
 
-    # ---- decorrelation (:338-421); C# masks shift counts & 31 ----
-    lw = torch.where(comp, m.interlacing_leftweight, 0)[:, None]
-    sh = torch.where(comp, m.interlacing_shift, 0)[:, None] & 31
-    right_w = a - sra(b * lw, sh)
-    left_w = right_w + b
-    use_w = (lw != 0) & m.is_stereo[:, None]
-    left = torch.where(use_w, left_w, a)
-    right = torch.where(use_w, right_w, b)
-
-    # ---- extra-bits merge (:381-395,549-554): 24-bit output paths only
-    ub8 = torch.where(comp, m.ub * 8, 0)[:, None]
-    mask = shl(torch.full_like(ub8, -1), ub8) ^ -1
-    has_extra = (ub8 > 0) & (m.sample_size > 16)[:, None]
-    left = torch.where(has_extra, shl(left, ub8) | (extra_a & mask), left)
-    right = torch.where(
-        has_extra & m.is_stereo[:, None], shl(right, ub8) | (extra_b & mask),
-        right,
+    # ---- select, decorrelation, extra-bits merge, masks (kernel 7) ----
+    out = decode_epilogue(
+        out_a, out_b, extra_a, extra_b, raw_a, raw_b, m.is_stereo, comp,
+        m.sample_size, m.ub, m.interlacing_shift, m.interlacing_leftweight, n,
+        S, emit16=emit16, kernel=kernel,
     )
-
-    # 24-bit output is a 3-byte layout (Deinterlace24 truncates each
-    # value to its low 24 bits, AlacFile.cs:390-395,558-562).
-    is24 = (m.sample_size > 16)[:, None]
-    left = torch.where(is24, sra(shl(left, 8), 8), left)
-    right = torch.where(is24, sra(shl(right, 8), 8), right)
-
-    # mono lanes: silent channel 1 (:536-540,563-565); mask the tail.
-    live = torch.arange(S, dtype=I32, device=dev)[None, :] < n[:, None]
-    left = torch.where(live, left, 0)
-    right = torch.where(live & m.is_stereo[:, None], right, 0)
-    out = torch.stack([left, right], dim=-1)
-    if emit16:
-        out = out.to(torch.int16)
     return out, n, (end_a, end_b)

@@ -7,26 +7,27 @@ It needs one CUDA device, the CUDA toolkit (``nvcc``) and this
 repository's checkout; it imports nothing of JAX.  Phases, each fatal
 on failure, each printing its seconds:
 
-1. build — the six CUDA kernels (``alacnet_tpu_torch/csrc/*.cu``, one
+1. build — the eight CUDA kernels (``alacnet_tpu_torch/csrc/*.cu``, one
    nvcc process per source, all at once, then one link) and the native
    host tier, from the checkout's sources, into
    ``alacnet_tpu_torch/_build/``; prints the build times and the
    compiler's register/spill report;
 2. kernels — one pass of the pooled decode below, recording every call
-   of ``pack_rows``, ``fused_rice_lpc`` and ``bulk_bits`` that the main
-   path makes, and each call's group: its place in the frame batch
+   of ``pack_rows``, ``fused_rice_lpc``, ``bulk_bits`` and
+   ``decode_epilogue`` that the main path makes, and each call's group:
+   its place in the frame batch
    (channel A or B) and the batch's formats (channels, bits, extra
    bits, raw frames); each recorded call is run through the CUDA kernel
    (timed with CUDA events after a warm-up), and the first call of each
    group — then further calls while the kernel's plain total stays under
    ``PLAIN_BUDGET_S`` — through its plain torch version on the same card
-   tensors too, bit for bit; ``pack_rows`` and ``bulk_bits`` are timed on
-   the card alone too (CUDA-graph replays);
+   tensors too, bit for bit; ``pack_rows``, ``bulk_bits`` and
+   ``dec_epilogue`` are timed on the card alone too (CUDA-graph replays);
 3. e2e — ``alacnet_tpu_torch.decode_streams`` on the 8 smoke files
    (``tests/fixtures/torch_smoke``), each given 96 times as an
    in-memory stream (11,520 frames); every file's PCM sha256 must equal
-   ``expected.json`` (the JAX package's decode), all three kernels'
-   launch counts must rise, and the rate, the wall time and the
+   ``expected.json`` (the JAX package's decode), all four decode
+   kernels' launch counts must rise, and the rate, the wall time and the
    device time (CUDA events around the device work the pipeline queues;
    and, from a second run under torch.profiler, the busy time by op) are
    printed beside the card's name and power limit;
@@ -34,8 +35,9 @@ on failure, each printing its seconds:
    device="cuda")`` run over the PCM that phase 3 decoded (each file 96
    times: 10,944 frames of 4096 samples — orders.m4a's 16 short frames
    re-encode as 10 — in 12 chunks of at most 1024 frames, three
-   format groups), recording every ``predictor_errors_fused`` and
-   ``rice_merge_fused`` call and, per chunk, the host prep and the
+   format groups), recording every ``predictor_errors_fused``,
+   ``zero_run_lengths_fused`` and ``rice_merge_fused`` call and, per
+   chunk, the host prep and the
    payloads the production pair packer wrote; every recorded call runs
    through the CUDA kernel (timed with CUDA events), and the first call
    of each format group — then further calls while the plain total
@@ -48,7 +50,7 @@ on failure, each printing its seconds:
    package's encoder), one copy per file must equal the port's host
    ``AlacEncoder``, every output must decode on the card back to the PCM
    of ``expected.json``, the native pair packer must be the packer that
-   ran, and both encode kernels' launch counts must rise; the rate, the
+   ran, and the three encode kernels' launch counts must rise; the rate, the
    wall time, the stage times, the device time from CUDA events and a
    profiler busy-by-op are printed beside the card's name and power
    limit;
@@ -93,13 +95,20 @@ on failure, each printing its seconds:
    runs): its record goes on a ``bench_mono`` line, with the traced
    pass's busy device time and share and its rate over the bench's
    stereo music rate; it fails unless ``parity_ok`` holds, its rate is
-   above 0, the busy share is a measured number, and ``rice_lpc`` and
-   ``pack_rows`` launched equally often (one channel pass a span).  The
+   above 0, the busy share is a measured number, and ``rice_lpc``,
+   ``pack_rows`` and ``dec_epilogue`` launched equally often (one
+   channel pass and one epilogue a span).  The
    recorded calls run again through the kernel and the plain version,
    bit for bit, the first always, the next while the kernel's plain
    total stays under ``MONO_PLAIN_BUDGET_S`` (``bench_mono_kernel_check``
    lines; the ``kernels`` line's ``bench_mono_max_abs_err`` and
-   ``bench_mono_plain_calls``);
+   ``bench_mono_plain_calls``).  Last the epilogue arms, in a process of
+   their own (this script with ``--epilogue-arms``): the stereo and
+   the mono music device stages again, each with one traced pass, with
+   the decode's epilogue through the kernel and with its call site
+   swapped to ``decode_epilogue_plain``, in turns (kernel, plain; plain,
+   kernel); each arm's rates, busy time and by-op list go on an
+   ``epilogue_arms`` line;
 9. mesh — data parallelism over frames (``parallel/mesh.py``,
    ``parallel/distributed.py``): the pooled smoke decode through
    ``decode_streams(mesh=)`` over every visible card and over two shards
@@ -111,7 +120,7 @@ on failure, each printing its seconds:
    kernels on both streams) and ``encode_frames_device(mesh=)`` of a
    ragged slice of music.m4a's PCM against the single device and the
    host encoder; every call the two-shard decode and encode made to the
-   five kernel wrappers, recorded with its stream, and the first on each
+   seven kernel wrappers, recorded with its stream, and the first on each
    shard stream — then more while the kernel's plain total stays under
    ``MESH_PLAIN_BUDGET_S`` — run again on that stream through the
    kernel and the plain version, bit for bit (``mesh_kernel_check``
@@ -150,7 +159,8 @@ on failure, each printing its seconds:
    ``encode_m4a(device="cuda")`` bytes against the host encoder's, the
    pooled ``decode_files`` bit-exact per file, the encode and decode
    walls and rates; ``pack_rows``, ``rice_lpc``, ``bulk_bits``,
-   ``enc_pred`` and ``enc_rice`` must launch (counts set to 0 just
+   ``dec_epilogue``, ``enc_pred``, ``zero_runs`` and ``enc_rice`` must
+   launch (counts set to 0 just
    before, read just after: the ``kernels`` line's ``soak_launches``);
    each wrapper call of the soak is recorded and, after it, run again
    through the kernel and the plain version, bit for bit: the first call
@@ -188,7 +198,8 @@ exists (``pack_rows``: ``torch.take`` of the rows, timed as ``ms``),
 else null; the ``kernel_check`` line also times the two in turns
 (``time_against_library``), and ``library_over_kernel`` is the ratio of
 their medians from the host.  ``DEVICE_TIMED`` kernels (``pack_rows``,
-``bulk_bits``) also get ``device_ms`` and ``device_bound_share`` (bound
+``bulk_bits``, ``dec_epilogue``, ``zero_runs``) also get ``device_ms``
+and ``device_bound_share`` (bound
 over card-alone time) in their ``kernel_check`` line, and ``bulk_bits``
 ``interface_bytes`` and ``interface_bound_ms``: the bytes with the zeros
 its full (B, S) planes hold past each lane's n.  Numbers
@@ -226,15 +237,19 @@ KERNELS = {
     "enc_pred": "alacnet_tpu/ops/pallas/enc_stages.py:382",
     "enc_rice": "alacnet_tpu/ops/pallas/enc_stages.py:473",
     "rice_emit": "alacnet_tpu/ops/pallas/rice_emit.py:219",
+    # no pl.pallas_call: the XLA fusions the JAX package runs under jit
+    "dec_epilogue": "alacnet_tpu/ops/frame_decode.py:392",
+    "zero_runs": "alacnet_tpu/ops/pallas/enc_stages.py:566",
 }
 #: The path whose run each kernel's launch count comes from.
 KERNEL_PATHS = {
-    **dict.fromkeys(("pack_rows", "rice_lpc", "bulk_bits"), "decode_streams"),
-    **dict.fromkeys(("enc_pred", "enc_rice"), "encode_files"),
+    **dict.fromkeys(("pack_rows", "rice_lpc", "bulk_bits", "dec_epilogue"),
+                    "decode_streams"),
+    **dict.fromkeys(("enc_pred", "enc_rice", "zero_runs"), "encode_files"),
     "rice_emit": "symbol-plane route",
 }
-DECODE_KERNELS = ("pack_rows", "rice_lpc", "bulk_bits")
-ENCODE_KERNELS = ("enc_pred", "enc_rice")
+DECODE_KERNELS = ("pack_rows", "rice_lpc", "bulk_bits", "dec_epilogue")
+ENCODE_KERNELS = ("enc_pred", "enc_rice", "zero_runs")
 #: Seconds of plain-version runs each kernel's check may spend past the
 #: first call of each group (the plain rice_lpc and predictor take
 #: ~11-13 s a call on the H100).
@@ -246,7 +261,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: Estimated int32 operations per item of each kernel, counted from the
 #: plain version's expressions: per live sample (``sample``), per FIR
-#: tap of a live sample (``tap``), per output word (``word``).
+#: tap of a live sample (``tap``), per output word (``word``), per
+#: (lane, sample) position of the output (``position``).
 INT_OPS = {
     "pack_rows": {"word": 6},
     "rice_lpc": {"sample": 40, "tap": 4},
@@ -254,6 +270,8 @@ INT_OPS = {
     "enc_pred": {"sample": 20, "tap": 4},
     "enc_rice": {"sample": 135},
     "rice_emit": {"sample": 115},
+    "dec_epilogue": {"sample": 24},
+    "zero_runs": {"position": 4},
 }
 #: Rounds of (kernel, library call) in turns per call where a library
 #: call computes the kernel's function (``pack_rows``: ``torch.take``),
@@ -261,7 +279,7 @@ INT_OPS = {
 ALT_ROUNDS = 7
 #: Kernels whose calls are also timed on the card alone (``device_ms``):
 #: tens of microseconds of kernel, under the wrapper's host work.
-DEVICE_TIMED = ("pack_rows", "bulk_bits")
+DEVICE_TIMED = ("pack_rows", "bulk_bits", "dec_epilogue", "zero_runs")
 #: Frames per window and per resumable chunk of phase 7's checks.
 API_WINDOW = 4
 RESUME_FRAMES = 5
@@ -273,7 +291,8 @@ BENCH_KERNELS = DECODE_KERNELS + ENCODE_KERNELS
 ENC_CALL_SITES = {
     k: ("alacnet_tpu_torch.ops.cuda.enc_stages", attr)
     for k, attr in (("enc_pred", "predictor_errors_fused"),
-                    ("enc_rice", "rice_merge_fused"))
+                    ("enc_rice", "rice_merge_fused"),
+                    ("zero_runs", "zero_run_lengths_fused"))
 }
 #: Where the encode pipeline packs each chunk's planes into payloads.
 ENC_PACK = {"pack": ("alacnet_tpu_torch.codec.encoder_device", "_pack")}
@@ -294,6 +313,7 @@ CALL_SITES = {
     "pack_rows": ("alacnet_tpu_torch.parallel.pipeline", "pack_rows"),
     "rice_lpc": ("alacnet_tpu_torch.ops.frame_decode", "fused_rice_lpc"),
     "bulk_bits": ("alacnet_tpu_torch.ops.frame_decode", "bulk_bits"),
+    "dec_epilogue": ("alacnet_tpu_torch.ops.frame_decode", "decode_epilogue"),
 }
 
 
@@ -399,7 +419,7 @@ def _isum(t) -> int:
     return int(t.to(torch.int64).sum().item())
 
 
-def call_work(name: str, args, got) -> tuple[int, int]:
+def call_work(name: str, args, kwargs, got) -> tuple[int, int]:
     """(bytes, int32 ops) one recorded call must move and do: each input
     byte read once, each output byte written once, counting what this
     call's data needs (live samples, the coded bits a lane consumes);
@@ -430,6 +450,27 @@ def call_work(name: str, args, got) -> tuple[int, int]:
         live = _isum(nn)
         field_bits = _isum(nn * (n1 + n2))
         return field_bits // 8 + 16 * n.shape[0] + 8 * live, ops["sample"] * live
+    if name == "dec_epilogue":
+        # the planes each live sample needs: compressed lanes their out
+        # planes, raw lanes their raw ones, extra-bits lanes theirs; the
+        # full (B, S, 2) output; 2 bool and 5 int32 columns
+        out_a, out_b, extra_a, _, raw_a, _, st, comp, ss, ub, _, _, n, S = args[:14]
+        B = n.shape[0]
+        st, comp = st.to(torch.int64), comp.to(torch.int64)
+        nn = torch.clamp(n, 0, S).to(torch.int64)
+        have = [int(x is not None) for x in (out_a, out_b, extra_a, raw_a)]
+        extra = comp * ((ub > 0) & (ss > 16)).to(torch.int64) * have[2] * (1 + st)
+        planes = (comp * (have[0] + have[1] * st) + (1 - comp) * have[3] * (1 + st)
+                  + extra)
+        out_bytes = B * S * 2 * (2 if kwargs.get("emit16") else 4)
+        live = _isum(nn)
+        return 4 * _isum(nn * planes) + out_bytes + 22 * B, ops["sample"] * live
+    if name == "zero_runs":
+        # residuals read below each lane's n, the runs written in full
+        errs_sb, n = args[:2]
+        S, B = errs_sb.shape
+        return (4 * _isum(torch.clamp(n, 0, S)) + 4 * S * B + 4 * B,
+                ops["position"] * S * B)
     if name == "enc_pred":
         _, n, lp, S = args[:4]
         nn = torch.clamp(n, 0, S)
@@ -587,7 +628,7 @@ def compare_kernels(calls, fns, groups, budget_s) -> dict:
                 lib_times[key] = lib_times.get(key, 0.0) + v
             got = got if isinstance(got, tuple) else (got,)
             shapes.append(list(got[0].shape))
-            b, o = call_work(name, args, got)
+            b, o = call_work(name, args, kw, got)
             nbytes, nops = nbytes + b, nops + o
             iface_bytes += interface_bytes(name, args, b)
             bytes_s, ops_s = bytes_s + b / HBM_BYTES_PER_S, ops_s + o / INT32_OPS_PER_S
@@ -633,12 +674,13 @@ def compare_kernels(calls, fns, groups, budget_s) -> dict:
 
 
 def decode_fns() -> dict:
-    from alacnet_tpu_torch.ops.cuda import bulk_bits, pack_rows, rice_lpc
+    from alacnet_tpu_torch.ops.cuda import bulk_bits, epilogue, pack_rows, rice_lpc
 
     return {
         "pack_rows": pack_rows.pack_rows,
         "rice_lpc": rice_lpc.fused_rice_lpc,
         "bulk_bits": bulk_bits.bulk_bits,
+        "dec_epilogue": epilogue.decode_epilogue,
     }
 
 
@@ -813,12 +855,13 @@ def run_symbol_route(rice_calls, chunks) -> dict:
 
 
 def enc_fns() -> dict:
-    from alacnet_tpu_torch.ops.cuda import enc_stages, rice_emit
+    from alacnet_tpu_torch.ops.cuda import enc_stages, rice_emit, zero_runs
 
     return {
         "enc_pred": enc_stages.predictor_errors_fused,
         "enc_rice": enc_stages.rice_merge_fused,
         "rice_emit": rice_emit.rice_symbols_fused,
+        "zero_runs": zero_runs.zero_run_lengths_fused,
     }
 
 
@@ -1145,11 +1188,13 @@ def run_bench() -> dict:
     if missing:
         raise RuntimeError(f"the bench launched no {missing} kernel")
     mono = run_bench_mono(rec["device_msps_by_kind"]["music"])
-    return {"launches": launches, "mono": mono, "trace_bytes": len(trace_text)}
+    arms = epilogue_arms_subprocess()
+    return {"launches": launches, "mono": mono, "epilogue_arms": arms,
+            "trace_bytes": len(trace_text)}
 
 
 #: The kernels of the mono device stage, where the pipeline calls them.
-MONO_KERNELS = ("pack_rows", "rice_lpc")
+MONO_KERNELS = ("pack_rows", "rice_lpc", "dec_epilogue")
 MONO_CALL_SITES = {k: CALL_SITES[k] for k in MONO_KERNELS}
 #: Calls of each kernel the mono bench records: the gate pass's and the
 #: untimed run's first, made before the timed runs (holding a timed
@@ -1198,13 +1243,113 @@ def run_bench_mono(stereo_music_msps: float) -> dict:
     if not (isinstance(busy, float) and busy > 0):
         raise RuntimeError(f"the mono bench's device-busy share is not measured: {busy!r}")
     n = [launches.get(k, 0) for k in MONO_KERNELS]
-    if 0 in n or n[0] != n[1]:
-        raise RuntimeError(f"the mono bench's launches are not one rice_lpc pass a span: "
-                           f"{launches}")
+    if 0 in n or len(set(n)) != 1:
+        raise RuntimeError(f"the mono bench's launches are not one rice_lpc pass and one "
+                           f"epilogue a span: {launches}")
     checks = compare_recorded(calls, MONO_KERNELS, MONO_PLAIN_BUDGET_S, "bench_mono")
     del calls
     torch.cuda.empty_cache()
     return {"launches": launches, "checks": checks}
+
+
+#: Where the decode calls its epilogue: phase 8's plain arm swaps it.
+EPILOGUE_SITE = {"dec_epilogue": CALL_SITES["dec_epilogue"]}
+#: Rounds of phase 8's epilogue arms: kernel then plain, plain then kernel.
+EPILOGUE_ROUNDS = 2
+#: Seconds phase 8's epilogue-arms process may take.
+EPILOGUE_ARMS_TIMEOUT_S = 300
+
+
+def epilogue_arms_subprocess() -> dict:
+    """Phase 8's epilogue arms (``run_epilogue_arms``) in a process of
+    their own (this script with ``--epilogue-arms``): in a process that
+    has already run several profiler sessions, ``torch.profiler`` lost
+    the first device events of a short traced pass (a whole rice_lpc
+    launch on the H100), which a by-op breakdown cannot afford.  Its
+    ``epilogue_arms`` line is passed on."""
+    try:
+        res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--epilogue-arms"],
+                             capture_output=True, text=True,
+                             timeout=EPILOGUE_ARMS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise RuntimeError("the epilogue arms timed out")
+    if res.returncode != 0:
+        raise RuntimeError(f"the epilogue arms exited {res.returncode}:\n"
+                           f"{(res.stdout + res.stderr)[-4000:]}")
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    emit(line)
+    return line["epilogue_arms"]
+
+
+def epilogue_arms_worker() -> int:
+    """``--epilogue-arms``: run_epilogue_arms on the first card with the
+    kernels the parent process built."""
+    sys.path.insert(0, str(ROOT))
+    from alacnet_tpu_torch.ops.cuda import _lib
+
+    _lib.get_lib()
+    run_epilogue_arms(nvidia_smi())
+    return 0
+
+
+def run_epilogue_arms(card: str) -> dict:
+    """Phase 8's epilogue arms: the stereo and the mono music device
+    stages (``run_benchmark(kind="music", channels=c)`` at the bench's
+    defaults, one traced pass each) with the decode's epilogue through
+    the kernel, and with its call site swapped to
+    ``decode_epilogue_plain``, in turns (kernel, plain; plain, kernel).
+    Prints each arm's rates, its traced passes' busy time and the last
+    one's by-op list.  Fails unless every run passed its lossless gate,
+    the kernel arm launched ``dec_epilogue`` and the plain arm did not."""
+    import statistics
+
+    import torch
+
+    from alacnet_tpu_torch import bench_lib
+    from alacnet_tpu_torch.ops.cuda import _lib
+    from alacnet_tpu_torch.ops.cuda.epilogue import decode_epilogue_plain
+
+    def plain(key, orig):
+        def run(*args, emit16=False, kernel="auto"):
+            return decode_epilogue_plain(*args, emit16=emit16)
+        return run
+
+    arms = {"kernel": contextlib.nullcontext, "plain": lambda: wrapped(EPILOGUE_SITE, plain)}
+    stages = {2: "stereo", 1: "mono"}
+    runs = {(c, a): [] for c in stages for a in arms}
+    for r in range(EPILOGUE_ROUNDS):
+        for channels in stages:
+            for arm in ("kernel", "plain") if r % 2 == 0 else ("plain", "kernel"):
+                with tempfile.TemporaryDirectory() as tmp, arms[arm]():
+                    torch.cuda.synchronize()
+                    _lib.reset_launches()
+                    rec = bench_lib.run_benchmark(batch=4096, kind="music", channels=channels,
+                                                  trace_dir=tmp)
+                    launched = _lib.LAUNCHES.get("dec_epilogue", 0)
+                label = f"{stages[channels]} music, epilogue {arm}"
+                if not rec["parity_ok"]:
+                    raise RuntimeError(f"{label}: the lossless gate failed")
+                if not (isinstance(rec["value"], float) and rec["value"] > 0):
+                    raise RuntimeError(f"{label}: the rate is not above 0: {rec['value']!r}")
+                if (arm == "kernel") != (launched > 0):
+                    raise RuntimeError(f"{label}: {launched} dec_epilogue launches")
+                runs[(channels, arm)].append(rec)
+    out = {}
+    for (channels, arm), recs in runs.items():
+        out[f"{stages[channels]}_{arm}"] = {
+            "msps": statistics.median(x["value"] for x in recs),
+            "runs_msps": [x["value"] for x in recs],
+            "device_s": [x["device_s"] for x in recs],
+            "host_enqueue_s": [x["host_enqueue_s"] for x in recs],
+            "device_busy_ms": [x["device_busy_ms"] for x in recs],
+            "device_ms_by_op": recs[-1]["device_ms_by_op"],
+        }
+    for name in stages.values():
+        out[f"{name}_kernel_over_plain"] = (out[f"{name}_kernel"]["msps"]
+                                            / out[f"{name}_plain"]["msps"])
+    emit({"epilogue_arms": out, "card": card})
+    torch.cuda.empty_cache()
+    return out
 
 
 #: The two-shard mesh of phase 9: two streams on the first card.
@@ -2168,4 +2313,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         sys.exit(dist_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), *sys.argv[5:8]))
+    if sys.argv[1:2] == ["--epilogue-arms"]:
+        sys.exit(epilogue_arms_worker())
     sys.exit(main())

@@ -1218,3 +1218,305 @@ def test_fuzz_batches_kernel_matches_plain(cuda):
     for rec in soak_torch.fuzz_routes("cuda"):
         assert rec["equal"], rec
         assert rec["compared"] > 0.9 * rec["lanes"], rec
+
+
+# ---- the decode epilogue (dec_epilogue) and the zero-run lookahead (zero_runs)
+
+#: Frame length of the epilogue cases, their frames' lengths (the last
+#: partial) and the word-row width every batch is padded to.
+EPI_S = 256
+EPI_LENGTHS = (EPI_S, EPI_S, 101)
+EPI_W = 1024
+#: (channels, bits, EncoderConfig keywords, raw middle frame, emit16);
+#: tests/test_torch_epilogue.py holds the plain epilogue against JAX on them.
+EPILOGUE_CASES = {
+    "mono16": (1, 16, {}, False, False),
+    "mono16-emit16": (1, 16, {}, False, True),
+    "mono16-raw": (1, 16, {}, True, False),
+    "mono24": (1, 24, {}, False, False),
+    "mono24-ub1": (1, 24, {"uncompressed_bytes": 1}, False, False),
+    "mono24-raw": (1, 24, {}, True, False),
+    "stereo16-lw0": (2, 16, {"interlacing_shift": 0, "interlacing_leftweight": 0},
+                     False, False),
+    "stereo16": (2, 16, {}, False, False),
+    "stereo16-sh20-lw200": (2, 16, {"interlacing_shift": 20,
+                                    "interlacing_leftweight": 200}, False, False),
+    "stereo16-emit16": (2, 16, {}, False, True),
+    "stereo16-raw": (2, 16, {}, True, False),
+    "stereo16-raw-emit16": (2, 16, {}, True, True),
+    "stereo24": (2, 24, {}, False, False),
+    "stereo24-sh20-lw200": (2, 24, {"interlacing_shift": 20,
+                                    "interlacing_leftweight": 200}, False, False),
+    "stereo24-ub1": (2, 24, {"uncompressed_bytes": 1}, False, False),
+    "stereo24-ub1-lw0": (2, 24, {"uncompressed_bytes": 1, "interlacing_shift": 0,
+                                 "interlacing_leftweight": 0}, False, False),
+    "stereo24-ub1-sh20-lw200": (2, 24, {"uncompressed_bytes": 1, "interlacing_shift": 20,
+                                        "interlacing_leftweight": 200}, False, False),
+    "stereo24-raw": (2, 24, {}, True, False),
+}
+
+
+def epilogue_pcm(n, bits, channels, rng):
+    """Seeded music-like PCM: a few partials, noise and a silent stretch."""
+    t = np.arange(n)[:, None]
+    f = rng.uniform(0.002, 0.05, (3, channels))
+    x = sum(np.sin(2 * np.pi * f[k] * t + rng.uniform(0, 6)) / (k + 1) for k in range(3))
+    x = x * 0.3 + rng.normal(0, 0.02, (n, channels))
+    if channels == 2:
+        x[:, 1] = 0.7 * x[:, 0] + 0.3 * x[:, 1]  # correlated channels
+    x[n // 3 : n // 3 + 17] = 0
+    full = (1 << (bits - 1)) - 1
+    return np.clip(np.round(x * full), -full - 1, full).astype(np.int32)
+
+
+def epilogue_frames(name, seed=None):
+    """(payloads, params) of one case of ``EPILOGUE_CASES``, made by the
+    port's host encoder: ``EPI_LENGTHS`` frames, the middle one
+    uncompressed where the case has a raw frame."""
+    from alacnet_tpu_torch import AlacEncoder, EncoderConfig, default_cookie
+
+    channels, bits, kw, raw, _ = EPILOGUE_CASES[name]
+    seed = sorted(EPILOGUE_CASES).index(name) if seed is None else seed
+    rng = np.random.default_rng(seed)
+    params = default_cookie(44100, bits, channels, EPI_S)
+    enc = AlacEncoder(params, EncoderConfig(**kw))
+    enc_raw = AlacEncoder(params, EncoderConfig(**kw, force_uncompressed=True))
+    pcm = epilogue_pcm(sum(EPI_LENGTHS), bits, channels, rng)
+    out, lo = [], 0
+    for i, n in enumerate(EPI_LENGTHS):
+        out.append((enc_raw if raw and i == 1 else enc).encode_frame(pcm[lo : lo + n]))
+        lo += n
+    return out, [params] * len(out)
+
+
+def epilogue_batch(payloads, params):
+    """(the padded frame batch, its word rows as (B, EPI_W) uint32)."""
+    from alacnet_tpu_torch.codec.framemeta_vec import parse_frame_headers_blob
+    from alacnet_tpu_torch.parallel.pipeline import pad_frame_batch
+
+    blob = np.frombuffer(b"".join(payloads), np.uint8)
+    sizes = np.array([len(p) for p in payloads])
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    fb = pad_frame_batch(parse_frame_headers_blob(blob, offs, sizes, params))
+    words = np.zeros((fb.batch, EPI_W), np.uint32)
+    words[:, : fb.words.shape[1]] = fb.words
+    return fb, words
+
+
+def epilogue_mixed(bits):
+    """Every case of one width in one batch (seeds 100 and up)."""
+    payloads, params = [], []
+    for i, name in enumerate(sorted(EPILOGUE_CASES)):
+        if EPILOGUE_CASES[name][1] == bits:
+            p, q = epilogue_frames(name, seed=100 + i)
+            payloads += p
+            params += q
+    return epilogue_batch(payloads, params)
+
+
+def _sync(t):
+    if t.is_cuda:
+        torch.cuda.synchronize()
+
+
+def check_decode_epilogue(fb, words, emit16, dev):
+    """``decode_frames_packed`` through the kernels and through the plain
+    versions, bit for bit; the epilogue kernel launched once."""
+    from alacnet_tpu_torch.ops.cuda import _lib
+    from alacnet_tpu_torch.ops.frame_decode import FrameMetaArrays, decode_frames_packed
+
+    packed = FrameMetaArrays.pack_host(fb)
+    w = torch.from_numpy(words.view(np.int32).copy()).to(dev)
+    before = _lib.LAUNCHES["dec_epilogue"]
+    got, n = decode_frames_packed(w, packed, EPI_S, emit16=emit16, kernel="cuda")
+    _sync(got)
+    assert _lib.LAUNCHES["dec_epilogue"] == before + 1
+    want, wn = decode_frames_packed(w, packed, EPI_S, emit16=emit16, kernel="torch")
+    assert got.dtype == want.dtype and torch.equal(got, want) and torch.equal(n, wn)
+
+
+@pytest.mark.parametrize("name", list(EPILOGUE_CASES))
+def test_dec_epilogue_decode_cases(cuda, name):
+    check_decode_epilogue(*epilogue_batch(*epilogue_frames(name)),
+                          EPILOGUE_CASES[name][4], cuda)
+
+
+@pytest.mark.parametrize("bits", [16, 24])
+def test_dec_epilogue_mixed_batch(cuda, bits):
+    check_decode_epilogue(*epilogue_mixed(bits), False, cuda)
+
+
+#: The epilogue's per-lane columns, in ``decode_epilogue``'s order.
+EPILOGUE_COLUMNS = ("is_stereo", "is_compressed", "sample_size", "ub",
+                    "interlacing_shift", "interlacing_leftweight", "n")
+
+
+def epilogue_synthetic(B, S, seed):
+    """Six (B, S) int32 planes of any values and per-lane columns the
+    encoder cannot make: ub 0-3 on every width (16-bit lanes with ub > 0
+    included), sample sizes 8-32, shifts 0-31 and outside, leftweights
+    whose product with channel B overflows, n from -1 to S + 3."""
+    rng = np.random.default_rng(seed)
+    planes = [rng.integers(-(1 << 31), 1 << 31, (B, S), dtype=np.int64).astype(np.int32)
+              for _ in range(6)]
+    lane = np.arange(B)
+    lw = rng.integers(-300, 300, B)
+    lw[lane % 5 == 1] = rng.choice([(1 << 31) - 1, -(1 << 31), 1 << 20, -(1 << 24), 65537],
+                                   int((lane % 5 == 1).sum()))
+    n = rng.integers(0, S + 1, B)
+    n[lane % 9 == 4] = S
+    n[lane % 13 == 6] = rng.choice([-1, 0, S + 3], int((lane % 13 == 6).sum()))
+    cols = dict(
+        is_stereo=lane % 3 != 2, is_compressed=lane % 4 != 3,
+        sample_size=rng.choice([8, 16, 20, 24, 32], B),
+        ub=rng.integers(0, 4, B), interlacing_shift=np.where(lane % 7 == 0, 40, lane % 32),
+        interlacing_leftweight=lw, n=n,
+    )
+    cols = {k: v if v.dtype == bool else v.astype(np.int32) for k, v in cols.items()}
+    return planes, cols
+
+
+def _epilogue_planes(planes, layout, dev):
+    """The planes on ``dev``: ``lane_major`` contiguous (B, S);
+    ``sample_major`` with out_a/out_b the transposed views of (S, B)
+    storage, as the rice_lpc kernel returns them; ``misaligned`` each a
+    (B, S) view 4 bytes into a larger buffer (no row 16-byte aligned)."""
+    out = []
+    for i, p in enumerate(planes):
+        t = torch.from_numpy(p).to(dev)
+        if layout == "sample_major" and i < 2:
+            t = t.t().contiguous().t()
+        elif layout == "misaligned":
+            buf = torch.zeros(t.numel() + 1, dtype=torch.int32, device=dev)
+            buf[1:] = t.reshape(-1)
+            t = buf[1:].view(t.shape)
+        out.append(t)
+    return out
+
+
+def check_dec_epilogue(planes, cols, S, emit16, layout, dev, absent=()):
+    """``decode_epilogue`` through the kernel and the plain version, bit
+    for bit; planes in ``absent`` passed as None."""
+    from alacnet_tpu_torch.ops.cuda.epilogue import decode_epilogue
+
+    p = [None if i in absent else x
+         for i, x in enumerate(_epilogue_planes(planes, layout, dev))]
+    c = [torch.from_numpy(cols[k]).to(dev) for k in EPILOGUE_COLUMNS]
+    got = decode_epilogue(*p, *c, S, emit16=emit16, kernel="cuda")
+    _sync(got)
+    want = decode_epilogue(*p, *c, S, emit16=emit16, kernel="torch")
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout", ["sample_major", "lane_major", "misaligned"])
+@pytest.mark.parametrize("emit16", [False, True])
+@pytest.mark.parametrize("B,S", [(1, 1), (33, 255), (40, 256), (130, 1001), (4096, 64)])
+def test_dec_epilogue_synthetic(cuda, B, S, emit16, layout):
+    planes, cols = epilogue_synthetic(B, S, seed=B + S)
+    check_dec_epilogue(planes, cols, S, emit16, layout, cuda)
+
+
+@pytest.mark.parametrize("absent", [(1,), (2, 3), (4, 5), (1, 2, 3, 4, 5), (0, 1)],
+                         ids=["out_b", "extra", "raw", "all-but-a", "compressed"])
+@pytest.mark.parametrize("layout", ["sample_major", "lane_major"])
+def test_dec_epilogue_absent_planes(cuda, absent, layout):
+    planes, cols = epilogue_synthetic(70, 300, seed=len(absent))
+    check_dec_epilogue(planes, cols, 300, False, layout, cuda, absent)
+
+
+def zero_run_case(B, S, zero_share, seed):
+    """(errs (B, S) int32, n (B,) int32): residuals zero with probability
+    ``zero_share``, lane 0 all zero, and the first lanes' counts at S, 0,
+    S + 5, -3 and S // 2."""
+    rng = np.random.default_rng(seed)
+    errs = rng.integers(-40, 40, (B, S)).astype(np.int32)
+    errs[rng.random((B, S)) < zero_share] = 0
+    errs[0] = 0
+    n = rng.integers(0, S + 1, B).astype(np.int32)
+    n[:5] = [S, 0, S + 5, -3, S // 2][: min(5, B)]
+    return errs, n
+
+
+def check_zero_runs(errs, n, dev):
+    """``zero_run_lengths_fused`` through the kernel and the plain version
+    on the (S, B) plane, bit for bit; returns the runs as (B, S)."""
+    from alacnet_tpu_torch.ops.cuda.zero_runs import zero_run_lengths_fused
+
+    e = torch.from_numpy(errs.T.copy()).to(dev)
+    nn = torch.from_numpy(n).to(dev)
+    got = zero_run_lengths_fused(e, nn, kernel="cuda")
+    _sync(got)
+    want = zero_run_lengths_fused(e, nn, kernel="torch")
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    return got.t().cpu().numpy()
+
+
+@pytest.mark.parametrize("zero_share", [0.0, 0.5, 0.97, 1.0])
+@pytest.mark.parametrize("B,S", [(1, 1), (7, 63), (33, 65), (130, 1000), (2048, 4096)])
+def test_zero_runs_kernel_matches_plain(cuda, B, S, zero_share):
+    check_zero_runs(*zero_run_case(B, S, zero_share, seed=B * S), cuda)
+
+
+def test_zero_runs_cross_tiles_and_cap(cuda):
+    """Runs across many 64-sample tiles: all-zero lanes of 70,000 samples
+    (capped at 0xFFFF), and breaks every 300 samples."""
+    errs, n = zero_run_case(5, 70000, 1.0, seed=1)
+    n[1] = 66000
+    errs[4, ::300] = 1
+    got = check_zero_runs(errs, n, cuda)
+    assert got.max() == 0xFFFF
+    assert got[4, 1] == 298
+
+
+@pytest.mark.parametrize("order", [0, 6])
+def test_zero_runs_on_encoder_residuals(cuda, order):
+    """The lookahead of the predictor's residuals at the encoder's shapes,
+    and the whole device encode stage through its three kernels."""
+    from alacnet_tpu_torch.ops.cuda import _lib
+    from alacnet_tpu_torch.ops.cuda.enc_stages import (
+        encode_stages_fused, predictor_errors_fused,
+    )
+
+    B, S = 2048, 4096
+    sig, n, lp, rp = _enc_inputs(B, S, order, cuda)
+    errs = predictor_errors_fused(sig, n, lp, S, max_order=_max_order(order))
+    check_zero_runs(errs.cpu().numpy(), n.cpu().numpy(), cuda)
+    before = _lib.LAUNCHES["zero_runs"]
+    got = encode_stages_fused(sig, n, lp, rp, S, max_order=_max_order(order))
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["zero_runs"] == before + 1
+    want = encode_stages_fused(sig, n, lp, rp, S, max_order=_max_order(order),
+                               kernel="torch")
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_refused_launch_raises_without_fallback(cuda, monkeypatch):
+    """A refused launch of either kernel raises from the main path under
+    ``kernel="auto"``; the plain versions are never reached."""
+    from alacnet_tpu_torch.ops.cuda import _lib, enc_stages, epilogue, zero_runs
+    from alacnet_tpu_torch.ops.frame_decode import FrameMetaArrays, decode_frames_packed
+
+    lib = _lib.get_lib()
+
+    class Refusing:
+        def __getattr__(self, name):
+            if name in ("alac_dec_epilogue", "alac_zero_runs"):
+                return lambda *args: 9  # cudaErrorInvalidConfiguration
+            return getattr(lib, name)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(_lib, "_lib", Refusing())
+    monkeypatch.setattr(epilogue, "decode_epilogue_plain", no_plain)
+    monkeypatch.setattr(zero_runs, "zero_run_lengths_sb", no_plain)
+    fb, words = epilogue_batch(*epilogue_frames("stereo24-ub1"))
+    w = torch.from_numpy(words.view(np.int32).copy()).to(cuda)
+    with pytest.raises(RuntimeError, match="alac_dec_epilogue: CUDA error 9"):
+        decode_frames_packed(w, FrameMetaArrays.pack_host(fb), EPI_S)
+    sig, n, lp, rp = _enc_inputs(33, 255, 6, cuda)
+    with pytest.raises(RuntimeError, match="alac_zero_runs: CUDA error 9"):
+        enc_stages.encode_stages_fused(sig, n, lp, rp, 255, max_order=6)
+    torch.cuda.synchronize()
