@@ -12,9 +12,10 @@ splits the way decoding does:
            two per-sample automatons, frame-per-lane with stereo
            channels folded into extra lanes (the ``enc_pred`` and
            ``enc_rice`` CUDA kernels on a card, their plain torch
-           versions on the CPU), the pair merge
-           (ops/encode.merge_pair_chunks) and, with ``quads``, the quad
-           merge (merge_quad_chunks);
+           versions on the CPU), the pair merge and, with ``quads``, the
+           quad merge (the ``pair_merge`` kernel on a card, lane-major
+           planes; ops/encode.merge_pair_chunks and merge_quad_chunks on
+           the CPU);
   host   — whole-batch packing (the native two-frame pair packer; the
            classic chunk packer or a Python BitWriter otherwise), or,
            with ``pack="scatter"``/``"gather"``, the frame bodies packed

@@ -60,7 +60,9 @@ _lib: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C signatures: every pointer and the stream as c_void_p, ints as c_int.
+_L = ctypes.c_longlong
+#: C signatures: every pointer and the stream as c_void_p, ints as c_int,
+#: element strides as c_longlong.
 _SIGNATURES = {
     "alac_pack_rows": [_P, _I, _P, _P, _I, _I, _I, _P, _P],
     "alac_rice_lpc": [_P, _I, _I] + [_P] * 10 + [_I, _I, _I, _P, _P, _P],
@@ -69,7 +71,8 @@ _SIGNATURES = {
     "alac_enc_rice": [_P, _P, _I, _I] + [_P] * 6 + [_P] * 6 + [_P],
     "alac_rice_emit": [_P, _P, _I, _I] + [_P] * 6 + [_P] * 4 + [_P],
     "alac_dec_epilogue": [_P, _P, _I, _I] + [_P] * 4 + [_P] * 7 + [_I, _I, _I, _P, _P],
-    "alac_zero_runs": [_P, _P, _I, _I, _P, _P, _P],
+    "alac_zero_runs": [_P, _P, _I, _I, _I, _P, _P],
+    "alac_pair_merge": [_P] * 4 + [_L] * 4 + [_I] * 3 + [_P] * 9 + [_P],
 }
 
 

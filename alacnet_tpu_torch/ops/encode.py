@@ -411,10 +411,13 @@ def encode_stages(sig, n, lp: LpcParams, rp: RiceEncParams, num_samples: int,
     fat) — the native pair packer's input.  ``quads`` (requires
     ``pairs``): also fold adjacent pairs via :func:`merge_quad_chunks`
     and append (qh, qm, ql, qws (B, ceil(S/4)), qfat (B,)) to the pair
-    tuple.  Every plane stays on the device: the caller copies back
-    the flags first, then only the plane set it packs.
+    tuple.  Both folds run in one call of the ``pair_merge`` kernel's
+    wrapper (``ops/cuda/pair_merge.py``), whose planes are lane-major on
+    the kernel route.  Every plane stays on the device: the caller
+    copies back the flags first, then only the plane set it packs.
     """
     from .cuda.enc_stages import encode_stages_fused
+    from .cuda.pair_merge import merge_pair_chunks_fused
 
     if quads and not pairs:
         raise ValueError("quads requires pairs")
@@ -422,11 +425,8 @@ def encode_stages(sig, n, lp: LpcParams, rp: RiceEncParams, num_samples: int,
         sig, n, lp, rp, num_samples, max_order=max_order, kernel=kernel
     )
     if pairs:
-        ph, pm, pl, pws, fat = merge_pair_chunks(c0, c1, c2, ws)
-        if quads:
-            return (ph, pm, pl, pws, bits, bad, fat,
-                    *merge_quad_chunks(ph, pm, pl, pws))
-        return ph, pm, pl, pws, bits, bad, fat
+        merged = merge_pair_chunks_fused(c0, c1, c2, ws, quads=quads, kernel=kernel)
+        return (*merged[:4], bits, bad, *merged[4:])
     return c0, c1, c2, ws, bits, bad
 
 

@@ -7,7 +7,7 @@ It needs one CUDA device, the CUDA toolkit (``nvcc``) and this
 repository's checkout; it imports nothing of JAX.  Phases, each fatal
 on failure, each printing its seconds:
 
-1. build — the eight CUDA kernels (``alacnet_tpu_torch/csrc/*.cu``, one
+1. build — the nine CUDA kernels (``alacnet_tpu_torch/csrc/*.cu``, one
    nvcc process per source, all at once, then one link) and the native
    host tier, from the checkout's sources, into
    ``alacnet_tpu_torch/_build/``; prints the build times and the
@@ -36,8 +36,8 @@ on failure, each printing its seconds:
    times: 10,944 frames of 4096 samples — orders.m4a's 16 short frames
    re-encode as 10 — in 12 chunks of at most 1024 frames, three
    format groups), recording every ``predictor_errors_fused``,
-   ``zero_run_lengths_fused`` and ``rice_merge_fused`` call and, per
-   chunk, the host prep and the
+   ``zero_run_lengths_fused``, ``rice_merge_fused`` and
+   ``merge_pair_chunks_fused`` call and, per chunk, the host prep and the
    payloads the production pair packer wrote; every recorded call runs
    through the CUDA kernel (timed with CUDA events), and the first call
    of each format group — then further calls while the plain total
@@ -50,10 +50,17 @@ on failure, each printing its seconds:
    package's encoder), one copy per file must equal the port's host
    ``AlacEncoder``, every output must decode on the card back to the PCM
    of ``expected.json``, the native pair packer must be the packer that
-   ran, and the three encode kernels' launch counts must rise; the rate, the
+   ran, and the four encode kernels must each launch once a chunk (an
+   ``encode_launches_per_call`` line); the rate, the
    wall time, the stage times, the device time from CUDA events and a
    profiler busy-by-op are printed beside the card's name and power
-   limit;
+   limit.  Then the encode profile, in a process of its own (this
+   script with ``--encode-profile``): the same pooled encode once more
+   under ``torch.profiler``, each device kernel and copy attributed to
+   its Python site (``ENC_PROFILE_SITES``: the dispatch, its uploads,
+   the prologue, the sample-major transposes, each kernel wrapper, the
+   D2H copies), its op and its class (elementwise, reduction, copy),
+   on an ``encode_profile`` line;
 6. symbol-plane route — every recorded ``rice_merge_fused`` call of
    phase 4 (its arguments are ``rice_symbols``') through
    ``rice_symbols_fused`` on the card (the ``rice_emit`` kernel), its
@@ -85,8 +92,10 @@ on failure, each printing its seconds:
    its record goes on a ``bench`` line.  It fails unless ``parity_ok``
    holds, every headline is above 0, the e2e device-busy share is a
    measured number, the trace names the ``rice_lpc`` kernel and each
-   kernel of the bench's paths (all but ``rice_emit``) launched.  Then
-   the mono device stage, ``run_benchmark(kind="music", channels=1)``
+   kernel of the bench's paths (all but ``rice_emit``) launched.  Then,
+   in a process of their own (this script with ``--traced-stages``, so
+   that a long process's profiler loses none of a short pass's device
+   events), the mono device stage, ``run_benchmark(kind="music", channels=1)``
    at the bench's defaults (4,096 frames of 4,096 samples in one span)
    with one traced pass, launch counts set to 0 just before and read
    just after (the ``kernels`` line's ``bench_mono_launches``) and the
@@ -102,9 +111,8 @@ on failure, each printing its seconds:
    bit for bit, the first always, the next while the kernel's plain
    total stays under ``MONO_PLAIN_BUDGET_S`` (``bench_mono_kernel_check``
    lines; the ``kernels`` line's ``bench_mono_max_abs_err`` and
-   ``bench_mono_plain_calls``).  Last the epilogue arms, in a process of
-   their own (this script with ``--epilogue-arms``): the stereo and
-   the mono music device stages again, each with one traced pass, with
+   ``bench_mono_plain_calls``).  Last, in the same process, the
+   epilogue arms: the stereo and the mono music device stages again, each with one traced pass, with
    the decode's epilogue through the kernel and with its call site
    swapped to ``decode_epilogue_plain``, in turns (kernel, plain; plain,
    kernel); each arm's rates, busy time and by-op list go on an
@@ -120,7 +128,7 @@ on failure, each printing its seconds:
    kernels on both streams) and ``encode_frames_device(mesh=)`` of a
    ragged slice of music.m4a's PCM against the single device and the
    host encoder; every call the two-shard decode and encode made to the
-   seven kernel wrappers, recorded with its stream, and the first on each
+   eight kernel wrappers, recorded with its stream, and the first on each
    shard stream — then more while the kernel's plain total stays under
    ``MESH_PLAIN_BUDGET_S`` — run again on that stream through the
    kernel and the plain version, bit for bit (``mesh_kernel_check``
@@ -140,14 +148,17 @@ on failure, each printing its seconds:
    run on each packing route (``ROUTES``: the default host pair pack,
    ``pack="scatter"``, ``pack="gather"``, ``quads=True``), first one
    checked round (every output's sha256 against ``encode_expected.json``,
-   ``enc_pred`` and ``enc_rice`` launched, every chunk device-packed on
+   every encode kernel of the route launched — the pair routes also
+   ``pair_merge`` — every chunk device-packed on
    the device routes, some chunk on quads), then ``ROUTE_RUNS`` timed
    rounds in turns, the order rotating; hires24 and fat24 with
    ``EncoderConfig(uncompressed_bytes=1)`` under ``pack="scatter"`` (the
    host packer, their hashes); seven 16-bit music frames and one of
    full-range noise with quads (a minority repacked, equal to the host
    ``AlacEncoder``); then one 1,024-frame chunk of music.m4a's PCM: the
-   gather and scatter packs and the quad fold timed by CUDA events,
+   gather and scatter packs and the quad fold (the ``pair_merge``
+   kernel in quad mode, and its plain version, bit for bit) timed by
+   CUDA events,
    every route's bytes against the host packer's, and what each route
    copies back.  It prints the chunks on quads, the frames repacked,
    each route's rate (median of the timed rounds) over the pair
@@ -159,8 +170,8 @@ on failure, each printing its seconds:
    ``encode_m4a(device="cuda")`` bytes against the host encoder's, the
    pooled ``decode_files`` bit-exact per file, the encode and decode
    walls and rates; ``pack_rows``, ``rice_lpc``, ``bulk_bits``,
-   ``dec_epilogue``, ``enc_pred``, ``zero_runs`` and ``enc_rice`` must
-   launch (counts set to 0 just
+   ``dec_epilogue``, ``enc_pred``, ``zero_runs``, ``enc_rice`` and
+   ``pair_merge`` must launch (counts set to 0 just
    before, read just after: the ``kernels`` line's ``soak_launches``);
    each wrapper call of the soak is recorded and, after it, run again
    through the kernel and the plain version, bit for bit: the first call
@@ -198,7 +209,7 @@ exists (``pack_rows``: ``torch.take`` of the rows, timed as ``ms``),
 else null; the ``kernel_check`` line also times the two in turns
 (``time_against_library``), and ``library_over_kernel`` is the ratio of
 their medians from the host.  ``DEVICE_TIMED`` kernels (``pack_rows``,
-``bulk_bits``, ``dec_epilogue``, ``zero_runs``) also get ``device_ms``
+``bulk_bits``, ``dec_epilogue``, ``zero_runs``, ``pair_merge``) also get ``device_ms``
 and ``device_bound_share`` (bound
 over card-alone time) in their ``kernel_check`` line, and ``bulk_bits``
 ``interface_bytes`` and ``interface_bound_ms``: the bytes with the zeros
@@ -240,16 +251,20 @@ KERNELS = {
     # no pl.pallas_call: the XLA fusions the JAX package runs under jit
     "dec_epilogue": "alacnet_tpu/ops/frame_decode.py:392",
     "zero_runs": "alacnet_tpu/ops/pallas/enc_stages.py:566",
+    "pair_merge": "alacnet_tpu/ops/encode.py:324",
 }
 #: The path whose run each kernel's launch count comes from.
 KERNEL_PATHS = {
     **dict.fromkeys(("pack_rows", "rice_lpc", "bulk_bits", "dec_epilogue"),
                     "decode_streams"),
-    **dict.fromkeys(("enc_pred", "enc_rice", "zero_runs"), "encode_files"),
+    **dict.fromkeys(("enc_pred", "enc_rice", "zero_runs", "pair_merge"), "encode_files"),
     "rice_emit": "symbol-plane route",
 }
 DECODE_KERNELS = ("pack_rows", "rice_lpc", "bulk_bits", "dec_epilogue")
-ENCODE_KERNELS = ("enc_pred", "enc_rice", "zero_runs")
+ENCODE_KERNELS = ("enc_pred", "enc_rice", "zero_runs", "pair_merge")
+#: The encode kernels of the pair-plane routes only: the device-pack
+#: routes take the classic planes, with no pair merge.
+PAIR_KERNELS = ("pair_merge",)
 #: Seconds of plain-version runs each kernel's check may spend past the
 #: first call of each group (the plain rice_lpc and predictor take
 #: ~11-13 s a call on the H100).
@@ -262,7 +277,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: Estimated int32 operations per item of each kernel, counted from the
 #: plain version's expressions: per live sample (``sample``), per FIR
 #: tap of a live sample (``tap``), per output word (``word``), per
-#: (lane, sample) position of the output (``position``).
+#: (lane, sample) position of the output (``position``), per pair and
+#: per quad of the output (``pair``, ``quad``: merge_pair_chunks' ~40
+#: operations, and merge_quad_chunks' clamp and poisoning besides).
 INT_OPS = {
     "pack_rows": {"word": 6},
     "rice_lpc": {"sample": 40, "tap": 4},
@@ -272,6 +289,7 @@ INT_OPS = {
     "rice_emit": {"sample": 115},
     "dec_epilogue": {"sample": 24},
     "zero_runs": {"position": 4},
+    "pair_merge": {"pair": 40, "quad": 43},
 }
 #: Rounds of (kernel, library call) in turns per call where a library
 #: call computes the kernel's function (``pack_rows``: ``torch.take``),
@@ -279,7 +297,7 @@ INT_OPS = {
 ALT_ROUNDS = 7
 #: Kernels whose calls are also timed on the card alone (``device_ms``):
 #: tens of microseconds of kernel, under the wrapper's host work.
-DEVICE_TIMED = ("pack_rows", "bulk_bits", "dec_epilogue", "zero_runs")
+DEVICE_TIMED = ("pack_rows", "bulk_bits", "dec_epilogue", "zero_runs", "pair_merge")
 #: Frames per window and per resumable chunk of phase 7's checks.
 API_WINDOW = 4
 RESUME_FRAMES = 5
@@ -287,12 +305,14 @@ RESUME_FRAMES = 5
 LONG_COPIES = 94
 #: The kernels the bench's paths launch (rice_emit is on no encoder path).
 BENCH_KERNELS = DECODE_KERNELS + ENCODE_KERNELS
-#: Where encode_stages_fused calls each encode kernel wrapper.
+#: Where encode_stages_fused calls each encode kernel wrapper, and
+#: ops/encode.encode_stages the pair merge's.
 ENC_CALL_SITES = {
-    k: ("alacnet_tpu_torch.ops.cuda.enc_stages", attr)
-    for k, attr in (("enc_pred", "predictor_errors_fused"),
-                    ("enc_rice", "rice_merge_fused"),
-                    ("zero_runs", "zero_run_lengths_fused"))
+    **{k: ("alacnet_tpu_torch.ops.cuda.enc_stages", attr)
+       for k, attr in (("enc_pred", "predictor_errors_fused"),
+                       ("enc_rice", "rice_merge_fused"),
+                       ("zero_runs", "zero_run_lengths_fused"))},
+    "pair_merge": ("alacnet_tpu_torch.ops.cuda.pair_merge", "merge_pair_chunks_fused"),
 }
 #: Where the encode pipeline packs each chunk's planes into payloads.
 ENC_PACK = {"pack": ("alacnet_tpu_torch.codec.encoder_device", "_pack")}
@@ -471,6 +491,15 @@ def call_work(name: str, args, kwargs, got) -> tuple[int, int]:
         S, B = errs_sb.shape
         return (4 * _isum(torch.clamp(n, 0, S)) + 4 * S * B + 4 * B,
                 ops["position"] * S * B)
+    if name == "pair_merge":
+        # every (lane, sample) of the chunk planes read (three int32
+        # words and an int8 width), every pair (and quad) written the
+        # same way, one flag a lane each
+        B, S = args[0].shape
+        P = -(-S // 2)
+        Q = -(-P // 2) if kwargs.get("quads") else 0
+        return (13 * B * S + 13 * B * P + B + (13 * B * Q + B if Q else 0),
+                ops["pair"] * B * P + ops["quad"] * B * Q)
     if name == "enc_pred":
         _, n, lp, S = args[:4]
         nn = torch.clamp(n, 0, S)
@@ -855,13 +884,14 @@ def run_symbol_route(rice_calls, chunks) -> dict:
 
 
 def enc_fns() -> dict:
-    from alacnet_tpu_torch.ops.cuda import enc_stages, rice_emit, zero_runs
+    from alacnet_tpu_torch.ops.cuda import enc_stages, pair_merge, rice_emit, zero_runs
 
     return {
         "enc_pred": enc_stages.predictor_errors_fused,
         "enc_rice": enc_stages.rice_merge_fused,
         "rice_emit": rice_emit.rice_symbols_fused,
         "zero_runs": zero_runs.zero_run_lengths_fused,
+        "pair_merge": pair_merge.merge_pair_chunks_fused,
     }
 
 
@@ -940,6 +970,12 @@ def run_encode_e2e(decoded, names, expected, enc_expected, card: str) -> dict:
     missing = [k for k in ENCODE_KERNELS if launches.get(k, 0) == 0]
     if missing:
         raise RuntimeError(f"the encode path launched no {missing} kernel")
+    # one launch of each encode kernel a chunk's dispatch (no chunk of
+    # the corpus has a pair past 96 bits, which would dispatch again)
+    per_call = {k: launches.get(k, 0) / len(intervals) for k in ENCODE_KERNELS}
+    emit({"encode_launches_per_call": per_call, "chunks": len(intervals)})
+    if any(v != 1 for v in per_call.values()):
+        raise RuntimeError(f"encode kernel launches a chunk: {per_call}")
     if packers["pair"] != len(intervals) or packers["chunk"]:
         raise RuntimeError(f"the pair packer did not pack every chunk: {packers}, "
                            f"{len(intervals)} chunks")
@@ -976,6 +1012,165 @@ def run_encode_e2e(decoded, names, expected, enc_expected, card: str) -> dict:
     }
     emit({"encode_e2e": out})
     return out
+
+
+#: The Python sites of the pooled encode's device work, each a named
+#: range in the encode profile (``encode_profile``): a kernel or copy
+#: belongs to the innermost range around the op that queued it.  Sites
+#: a tree lacks are left out (the parent tree of the pair_merge kernel
+#: runs the plain merge_pair_chunks / merge_quad_chunks).
+ENC_PROFILE_SITES = {
+    "dispatch": ("alacnet_tpu_torch.codec.encoder_device", "_dispatch"),
+    "h2d": ("alacnet_tpu_torch.codec.encoder_device", "h2d"),
+    "prologue": ("alacnet_tpu_torch.ops.encode", "encode_stages_pcm"),
+    "sample_major": ("alacnet_tpu_torch.ops.cuda.enc_stages", "_sample_major"),
+    **ENC_CALL_SITES,
+    "pair_merge_plain": ("alacnet_tpu_torch.ops.encode", "merge_pair_chunks"),
+    "quad_merge_plain": ("alacnet_tpu_torch.ops.encode", "merge_quad_chunks"),
+    "d2h": ("alacnet_tpu_torch.codec.encoder_device", "d2h_async"),
+}
+#: Kernel-name fragments and the class each is counted under.
+KERNEL_CLASSES = (
+    ("Memcpy DtoH", "D2H"), ("Memcpy HtoD", "H2D"), ("Memcpy DtoD", "D2D"),
+    ("Memset", "memset"), ("reduce_kernel", "reduce"), ("CatArrayBatchedCopy", "cat"),
+    ("elementwise_kernel", "elementwise"),
+)
+#: Seconds phase 5's encode-profile process may take.
+ENCODE_PROFILE_TIMEOUT_S = 300
+
+
+def kernel_class(name: str) -> str:
+    """A device event's class (``KERNEL_CLASSES``), else the kernel's
+    name without its namespaces, template arguments and parameters."""
+    for key, label in KERNEL_CLASSES:
+        if key in name:
+            return label
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1]
+
+
+def encode_profile(decoded, names, card: str) -> dict:
+    """The pooled ``encode_files`` of phase 5 (each file COPIES times),
+    once to warm up, then once under ``torch.profiler`` with each site
+    of ``ENC_PROFILE_SITES`` a ``record_function`` range: each device
+    kernel and copy attributed to its site and op through the host call
+    that queued it (the runtime event of the same correlation id: the
+    innermost range and aten op around it; a kernel launched through
+    ctypes has no aten op), and to the kernel's class; the device
+    kernels a site launched, over the chunks (the calls of the
+    ``zero_runs`` site)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import alacnet_tpu_torch
+
+    sites = {}
+    for key, (mod_name, attr) in ENC_PROFILE_SITES.items():
+        try:
+            if hasattr(importlib.import_module(mod_name), attr):
+                sites[key] = (mod_name, attr)
+        except ImportError:
+            pass
+
+    def ranged(key, orig):
+        def run(*args, **kwargs):
+            with record_function(f"site:{key}"):
+                return orig(*args, **kwargs)
+        return run
+
+    config = alacnet_tpu_torch.EncoderConfig()
+    encode_pooled(decoded, names, config)
+    torch.cuda.synchronize()
+    with wrapped(sites, ranged), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        encode_pooled(decoded, names, config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_site, by_class, calls, runtime, device = {}, {}, {}, {}, []
+    busy_ms = 0.0
+    for ev in prof.events():
+        on_cpu = "CPU" in str(ev.device_type)
+        if ev.name.startswith("site:"):  # the ranges also show on the device
+            if on_cpu:
+                calls[ev.name[5:]] = calls.get(ev.name[5:], 0) + 1
+        elif on_cpu and ev.name.startswith("cu"):  # cudaLaunchKernel, cudaMemcpyAsync, ...
+            runtime.setdefault(ev.id, ev)
+        elif "CUDA" in str(ev.device_type):
+            device.append(ev)
+    for ev in device:
+        site, op = "unattributed", None
+        parent = runtime[ev.id].cpu_parent if ev.id in runtime else None
+        while parent is not None and not parent.name.startswith("site:"):
+            if op is None and parent.name.startswith("aten::"):
+                op = parent.name
+            parent = parent.cpu_parent
+        if parent is not None:
+            site = parent.name[5:]
+        elif ev.id in runtime:
+            site = "other"
+        rec = by_site.setdefault(site, {"ms": 0.0, "kernels": 0, "by_op": {}})
+        ms = (ev.time_range.end - ev.time_range.start) / 1e3
+        cls = kernel_class(ev.name)
+        busy_ms += ms
+        rec["ms"] += ms
+        rec["kernels"] += cls not in ("memset", "D2H", "H2D", "D2D")
+        key = f"{op} {cls}" if op else cls
+        rec["by_op"][key] = rec["by_op"].get(key, 0.0) + ms
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+    chunks = calls.get("zero_runs", 0)
+    for rec in by_site.values():
+        rec["by_op"] = dict(sorted(rec["by_op"].items(), key=lambda kv: -kv[1]))
+        rec["kernels_per_chunk"] = rec["kernels"] / chunks if chunks else None
+    out = {"wall_s": wall, "chunks": chunks, "device_busy_ms": busy_ms,
+           "elementwise_ms": sum(v for k, v in by_class.items()
+                                 if k in ("elementwise", "reduce", "cat")),
+           "by_class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+           "by_site": dict(sorted(by_site.items(), key=lambda kv: -kv[1]["ms"])),
+           "site_calls": calls, "sites": sorted(sites), "card": card}
+    emit({"encode_profile": out})
+    return out
+
+
+def encode_profile_subprocess() -> dict:
+    """Phase 5's encode profile (``encode_profile``) in a process of its
+    own (this script with ``--encode-profile``): a long process's trace
+    may lose its first device events (``traced_stages_subprocess``).
+    Its ``encode_profile`` line is passed on."""
+    try:
+        res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--encode-profile"],
+                             capture_output=True, text=True,
+                             timeout=ENCODE_PROFILE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise RuntimeError("the encode profile timed out")
+    if res.returncode != 0:
+        raise RuntimeError(f"the encode profile exited {res.returncode}:\n"
+                           f"{(res.stdout + res.stderr)[-4000:]}")
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    emit(line)
+    return line["encode_profile"]
+
+
+def encode_profile_worker() -> int:
+    """``--encode-profile``: the smoke corpus decoded on the first card
+    (one copy a file), then ``encode_profile`` of its pooled encode, with
+    the kernels the parent process built (or this tree's, built here)."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import alacnet_tpu_torch
+    from alacnet_tpu_torch.ops.cuda import _lib
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    clear_port_env()
+    _lib.get_lib()
+    names, data, _ = load_corpus()
+    results = alacnet_tpu_torch.decode_streams(
+        [io.BytesIO(data[n]) for n in names],
+        config=alacnet_tpu_torch.DecodeConfig(device=DEVICE))
+    encode_profile(dict(zip(names, results)), names, nvidia_smi())
+    return 0
 
 
 def expected_sha(pcm, want) -> str:
@@ -1187,10 +1382,9 @@ def run_bench() -> dict:
     missing = [k for k in BENCH_KERNELS if launches.get(k, 0) == 0]
     if missing:
         raise RuntimeError(f"the bench launched no {missing} kernel")
-    mono = run_bench_mono(rec["device_msps_by_kind"]["music"])
-    arms = epilogue_arms_subprocess()
-    return {"launches": launches, "mono": mono, "epilogue_arms": arms,
-            "trace_bytes": len(trace_text)}
+    staged = traced_stages_subprocess(rec["device_msps_by_kind"]["music"])
+    return {"launches": launches, "mono": staged["mono"],
+            "epilogue_arms": staged["epilogue_arms"], "trace_bytes": len(trace_text)}
 
 
 #: The kernels of the mono device stage, where the pipeline calls them.
@@ -1256,39 +1450,44 @@ def run_bench_mono(stereo_music_msps: float) -> dict:
 EPILOGUE_SITE = {"dec_epilogue": CALL_SITES["dec_epilogue"]}
 #: Rounds of phase 8's epilogue arms: kernel then plain, plain then kernel.
 EPILOGUE_ROUNDS = 2
-#: Seconds phase 8's epilogue-arms process may take.
-EPILOGUE_ARMS_TIMEOUT_S = 300
+#: Seconds phase 8's traced-stages process may take.
+TRACED_STAGES_TIMEOUT_S = 420
 
 
-def epilogue_arms_subprocess() -> dict:
-    """Phase 8's epilogue arms (``run_epilogue_arms``) in a process of
-    their own (this script with ``--epilogue-arms``): in a process that
-    has already run several profiler sessions, ``torch.profiler`` lost
-    the first device events of a short traced pass (a whole rice_lpc
-    launch on the H100), which a by-op breakdown cannot afford.  Its
-    ``epilogue_arms`` line is passed on."""
+def traced_stages_subprocess(stereo_music_msps: float) -> dict:
+    """Phase 8's mono stage (``run_bench_mono``) and epilogue arms
+    (``run_epilogue_arms``) in a process of their own (this script with
+    ``--traced-stages``): in a process that has already run many
+    profiler sessions, ``torch.profiler`` lost the first device events
+    of a short traced pass (a whole rice_lpc launch on the H100 in one
+    run, every event of the mono stage's 1.3 ms pass in another), which
+    a busy share and a by-op breakdown cannot afford.  The process's
+    lines are passed on; returns {"mono", "epilogue_arms"}."""
     try:
-        res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--epilogue-arms"],
-                             capture_output=True, text=True,
-                             timeout=EPILOGUE_ARMS_TIMEOUT_S)
+        res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--traced-stages",
+                              repr(stereo_music_msps)],
+                             capture_output=True, text=True, timeout=TRACED_STAGES_TIMEOUT_S)
     except subprocess.TimeoutExpired:
-        raise RuntimeError("the epilogue arms timed out")
+        raise RuntimeError("the traced stages timed out")
     if res.returncode != 0:
-        raise RuntimeError(f"the epilogue arms exited {res.returncode}:\n"
+        raise RuntimeError(f"the traced stages exited {res.returncode}:\n"
                            f"{(res.stdout + res.stderr)[-4000:]}")
-    line = json.loads(res.stdout.strip().splitlines()[-1])
-    emit(line)
-    return line["epilogue_arms"]
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    for ln in lines[:-1]:
+        print(ln, flush=True)
+    return json.loads(lines[-1])["traced_stages"]
 
 
-def epilogue_arms_worker() -> int:
-    """``--epilogue-arms``: run_epilogue_arms on the first card with the
-    kernels the parent process built."""
+def traced_stages_worker(stereo_music_msps: float) -> int:
+    """``--traced-stages``: run_bench_mono, then run_epilogue_arms, on
+    the first card with the kernels the parent process built."""
     sys.path.insert(0, str(ROOT))
     from alacnet_tpu_torch.ops.cuda import _lib
 
     _lib.get_lib()
-    run_epilogue_arms(nvidia_smi())
+    mono = run_bench_mono(stereo_music_msps)
+    arms = run_epilogue_arms(nvidia_smi())
+    emit({"traced_stages": {"mono": mono, "epilogue_arms": arms}})
     return 0
 
 
@@ -1761,7 +1960,8 @@ def check_route(label, route, datas, launches, timings, chunks, cfg_name, names,
     """A route run's outputs against encode_expected.json, its encode
     kernels launched, and its chunks packed the way the route says."""
     check_hashes(datas, names, cfg_name, enc_expected, f"route {label}: ")
-    idle = [k for k in ENCODE_KERNELS if launches.get(k, 0) == 0]
+    want = [k for k in ENCODE_KERNELS if "pack" not in route or k not in PAIR_KERNELS]
+    idle = [k for k in want if launches.get(k, 0) == 0]
     if idle:
         raise RuntimeError(f"route {label} launched no {idle} kernel: {launches}")
     devpack = timings.get("device_pack_chunks", 0)
@@ -1776,15 +1976,19 @@ def check_route(label, route, datas, launches, timings, chunks, cfg_name, names,
 def time_pack_chunk(decoded) -> dict:
     """The device packers' and the quad fold's time (CUDA events around
     5 calls after a warm-up) for one PACK_CHUNK_FRAMES-frame chunk of
-    music.m4a's PCM, tiled; each route's bytes for that chunk against
-    the host packer's, and what each copies back."""
+    music.m4a's PCM, tiled: the fold is the pair_merge kernel in quad
+    mode and its plain version (merge_pair_chunks, then
+    merge_quad_chunks) on the chunk's chunk planes, bit for bit; each
+    route's bytes for that chunk against the host packer's, and what
+    each copies back."""
     import torch
 
     import alacnet_tpu_torch as at
     from alacnet_tpu_torch.codec import encoder_device as ed
-    from alacnet_tpu_torch.ops.encode import (
-        merge_quad_chunks, pack_frames_device, pack_frames_device_scatter,
+    from alacnet_tpu_torch.ops.cuda.pair_merge import (
+        merge_pair_chunks_fused, merge_pair_chunks_plain,
     )
+    from alacnet_tpu_torch.ops.encode import pack_frames_device, pack_frames_device_scatter
 
     music = decoded["music.m4a"]
     S = 4096
@@ -1800,17 +2004,22 @@ def time_pack_chunk(decoded) -> dict:
     cols = torch.from_numpy(
         np.stack([prep["ns_f"], prep["stereo_f"], prep["hbits"]]).astype(np.int32)).to(dev)
     args = (*fetch.planes[:4], cols[0], cols[1] != 0, cols[2])
-    pairs = ed._dispatch(prep, params, cfg, dev, pairs=True, quads=True)
     fns = {
         "gather": lambda: pack_frames_device(*args, stride_words=stride),
         "scatter": lambda: pack_frames_device_scatter(*args, stride_words=stride),
-        "quad_fold": lambda: merge_quad_chunks(*pairs.planes[:4]),
+        "quad_fold": lambda: merge_pair_chunks_fused(*fetch.planes[:4], quads=True),
+        "quad_fold_plain": lambda: merge_pair_chunks_plain(*fetch.planes[:4], quads=True),
     }
     out = {"frames": F, "samples": F * S, "stride_words": stride}
     for name, fn in fns.items():
         fn()
         torch.cuda.synchronize()
         out[f"{name}_ms"] = cuda_ms(fn, 5)
+    out["quad_fold_max_abs_err"] = max_abs_err(
+        "pair_merge", fns["quad_fold"](), fns["quad_fold_plain"]())
+    if out["quad_fold_max_abs_err"] != 0:  # the tolerance: bit for bit
+        raise RuntimeError(f"the quad fold differs from its plain version: {out}")
+    out["quad_fold_plain_over_kernel"] = out["quad_fold_plain_ms"] / out["quad_fold_ms"]
     want = ed._pack_host(prep, ed._dispatch(prep, params, cfg, dev, pairs=False), None)
     for impl in ("scatter", "gather"):
         f2 = ed._dispatch(prep, params, cfg, dev, pack=impl)
@@ -2233,6 +2442,7 @@ def main() -> int:
 
     t = time.perf_counter()
     enc = run_encode_e2e(decoded, names, expected, enc_expected, smi)
+    enc["profile"] = encode_profile_subprocess()
     emit({"phase": 5, "seconds": time.perf_counter() - t})
 
     t = time.perf_counter()
@@ -2313,6 +2523,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         sys.exit(dist_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), *sys.argv[5:8]))
-    if sys.argv[1:2] == ["--epilogue-arms"]:
-        sys.exit(epilogue_arms_worker())
+    if sys.argv[1:2] == ["--traced-stages"]:
+        sys.exit(traced_stages_worker(float(sys.argv[2])))
+    if sys.argv[1:2] == ["--encode-profile"]:
+        sys.exit(encode_profile_worker())
     sys.exit(main())

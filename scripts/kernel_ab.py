@@ -26,6 +26,13 @@ card as ``chip_smoke.py`` records them.
   (``chip_smoke.py`` phase 4's recording: 12 calls of up to 2048 lanes);
   ``rice_emit`` runs the ``rice_merge_fused`` calls' arguments through
   ``rice_symbols_fused`` (``chip_smoke.py`` phase 6);
+- ``zero_runs``, ``pair_merge``: every ``zero_run_lengths_fused`` and
+  ``merge_pair_chunks_fused`` call of that pooled encode; a tree without
+  the ``pair_merge`` kernel runs its plain ``merge_pair_chunks`` (then
+  ``merge_quad_chunks`` for a quad call), as its ``encode_stages`` does;
+  ``zero_runs`` also runs this tree's kernel at each strip width of
+  ``ops/cuda/zero_runs.STRIPS`` (``port_strip<N>``) beside the one
+  ``pick_strip`` chooses;
 - ``encode_e2e``: that pooled ``encode_files`` through each tree's
   package in turns (this tree, then OTHER and every MORE tree, then
   back in reverse order, per round), timing the wall, the host prep
@@ -42,7 +49,8 @@ order reversed every other round.  Each figure is the median over
   host work counts where it outlasts the kernel);
 - ``host_us``: the host's time per call in those 5 calls, before the
   wait for the card;
-- ``device_ms`` (``pack_rows``, ``bulk_bits``): a CUDA graph of 5 calls
+- ``device_ms`` (``chip_smoke.DEVICE_TIMED``, also per call as
+  ``device_ms_per_call``): a CUDA graph of 5 calls
   replayed, the card alone (``chip_smoke.graph_replay_ms``).
 
 Prints one JSON line per set and the card's name and power limit, and
@@ -87,11 +95,37 @@ def wrappers(name: str) -> dict:
         return importlib.import_module(f"{name}.{path}")
 
     enc = sub("ops.cuda.enc_stages")
+    try:
+        pair_merge = sub("ops.cuda.pair_merge").merge_pair_chunks_fused
+    except ImportError:  # a tree whose encode_stages runs the plain merge
+        plain = sub("ops.encode")
+
+        def pair_merge(c0, c1, c2, ws, quads=False, kernel="auto"):
+            pairs = plain.merge_pair_chunks(c0, c1, c2, ws)
+            return (*pairs, *plain.merge_quad_chunks(*pairs[:4])) if quads else pairs
     return {"pack_rows": sub("ops.cuda.pack_rows").pack_rows,
             "rice_lpc": sub("ops.cuda.rice_lpc").fused_rice_lpc,
             "bulk_bits": sub("ops.cuda.bulk_bits").bulk_bits,
             "enc_pred": enc.predictor_errors_fused, "enc_rice": enc.rice_merge_fused,
-            "rice_emit": sub("ops.cuda.rice_emit").rice_symbols_fused}
+            "rice_emit": sub("ops.cuda.rice_emit").rice_symbols_fused,
+            "zero_runs": sub("ops.cuda.zero_runs").zero_run_lengths_fused,
+            "pair_merge": pair_merge}
+
+
+def strip_runs(calls) -> dict:
+    """This tree's ``zero_runs`` calls at each strip width, forced."""
+    from alacnet_tpu_torch.ops.cuda import zero_runs
+
+    def run(a, kw, strip):
+        saved = zero_runs.pick_strip
+        zero_runs.pick_strip = lambda B, sms: strip
+        try:
+            return zero_runs.zero_run_lengths_fused(*a, **{**kw, "kernel": "cuda"})
+        finally:
+            zero_runs.pick_strip = saved
+
+    return {f"port_strip{strip}": [lambda a=a, kw=kw, s=strip: run(a, kw, s) for a, kw in calls]
+            for strip in zero_runs.STRIPS}
 
 
 def timed(run, reps: int = 5) -> tuple[float, float]:
@@ -217,8 +251,9 @@ def main() -> int:
     for i, root in enumerate(opt.more):
         trees[f"more{i + 1}"] = f"{OTHER}{i + 2}"
         load_package(root.resolve(), trees[f"more{i + 1}"])
+    enc_sets = {"enc_pred", "enc_rice", "rice_emit", "zero_runs", "pair_merge"}
     wanted = set(opt.sets or ("pack_rows", "rice_lpc", "bulk_bits", "rice_lpc_session",
-                              "enc_pred", "enc_rice", "rice_emit", "encode_e2e"))
+                              *enc_sets, "encode_e2e"))
 
     names, data, _ = cs.load_corpus()
     sets = {}
@@ -229,12 +264,13 @@ def main() -> int:
         music = alacnet_tpu_torch.decode_file(cs.CORPUS / "music.m4a", device="cuda")
         sets["rice_lpc_session"] = ("rice_lpc", cs.record_session_calls(cs.long_stream(music)[1]))
     decoded = None
-    if wanted & {"enc_pred", "enc_rice", "rice_emit", "encode_e2e"}:
+    if wanted & (enc_sets | {"encode_e2e"}):
         decoded = dict(zip(names, alacnet_tpu_torch.decode_streams(
             [io.BytesIO(data[n]) for n in names], device="cuda")))
-    if wanted & {"enc_pred", "enc_rice", "rice_emit"}:
+    if wanted & enc_sets:
         enc_calls, _, _ = cs.record_enc_calls(decoded, names)
-        sets.update({k: (k, enc_calls[k]) for k in ("enc_pred", "enc_rice")})
+        sets.update({k: (k, enc_calls[k]) for k in ("enc_pred", "enc_rice", "zero_runs",
+                                                     "pair_merge")})
         sets["rice_emit"] = ("rice_emit", enc_calls["enc_rice"])
     sets = {k: v for k, v in sets.items() if k in wanted}
 
@@ -243,7 +279,10 @@ def main() -> int:
         runs = {tree: [lambda a=a, kw=kw, f=fns[kernel]: f(*a, **{**kw, "kernel": "cuda"})
                        for a, kw in calls]
                 for tree, fns in (("port", port), ("other", other))}
-        exact = all(same(r(), ref()) for r, ref in zip(runs["other"], runs["port"]))
+        if kernel == "zero_runs":
+            runs.update(strip_runs(calls))
+        exact = all(same(r(), ref()) for name, rs in runs.items() if name != "port"
+                    for r, ref in zip(rs, runs["port"]))
         if kernel == "pack_rows":
             runs["torch_take"] = [cs.library_call("pack_rows", a) for a, _ in calls]
         if kernel in cs.DEVICE_TIMED:
@@ -257,15 +296,22 @@ def main() -> int:
                 rounds[name]["ms"].append(sum(ms))
                 rounds[name]["host_us"].append(sum(host))
                 if kernel in cs.DEVICE_TIMED:
-                    rounds[name]["device_ms"].append(sum(t() for t in graphs[name]))
+                    per_call = [t() for t in graphs[name]]
+                    rounds[name]["device_ms"].append(sum(per_call))
+                    rounds[name].setdefault("device_per_call", []).append(per_call)
         res = {"set": set_name, "calls": len(calls),
-               "lanes": sorted({a[1].shape[0] if kernel == "pack_rows" else a[0].shape[0]
+               "lanes": sorted({a[1].shape[0] if kernel == "pack_rows" else
+                                a[0].shape[-1] if kernel == "zero_runs" else a[0].shape[0]
                                 for a, _ in calls}),
                "exact": exact, "card": smi}
         for key in ("ms", "host_us", "device_ms"):
             med = {n: statistics.median(v[key]) for n, v in rounds.items() if v[key]}
             if med:
                 res[key] = med
+        per_call = {n: [statistics.median(c) for c in zip(*v.pop("device_per_call"))]
+                    for n, v in rounds.items() if "device_per_call" in v}
+        if per_call:
+            res["device_ms_per_call"] = per_call
         res["rounds"] = rounds
         results.append(res)
         print(json.dumps(res), flush=True)

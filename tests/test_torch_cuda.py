@@ -1016,8 +1016,8 @@ def test_two_shard_mesh_on_one_card_matches_single_device(cuda):
 
 def test_mesh_launches_each_kernel_on_each_shard_stream(cuda, monkeypatch):
     """Under a two-shard mesh, pack_rows, rice_lpc and bulk_bits launch
-    on both shard streams (and on no other), and the encode kernels on
-    both too."""
+    on both shard streams (and on no other), and the encode kernels
+    (the pair merge among them) on both too."""
     import alacnet_tpu_torch as at
     from alacnet_tpu_torch.parallel.mesh import make_mesh
 
@@ -1034,7 +1034,7 @@ def test_mesh_launches_each_kernel_on_each_shard_stream(cuda, monkeypatch):
     music = decoded[names.index("music.m4a") * MESH_COPIES]
     at.encode_files([music.pcm] * 3, [io.BytesIO() for _ in range(3)],
                     music.sample_rate, 16, mesh=mesh)
-    for k in ("enc_pred", "enc_rice"):
+    for k in ("enc_pred", "enc_rice", "zero_runs", "pair_merge"):
         assert all(seen[(k, h)] > 0 for h in handles), (k, seen)
 
 
@@ -1519,4 +1519,219 @@ def test_refused_launch_raises_without_fallback(cuda, monkeypatch):
     sig, n, lp, rp = _enc_inputs(33, 255, 6, cuda)
     with pytest.raises(RuntimeError, match="alac_zero_runs: CUDA error 9"):
         enc_stages.encode_stages_fused(sig, n, lp, rp, 255, max_order=6)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("zero_share", [0.0, 0.9, 1.0])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 4096])
+@pytest.mark.parametrize("B", [1, 3, 4, 5, 2047, 2048])
+def test_zero_runs_lane_and_sample_edges(cuda, B, S, zero_share):
+    """The one-launch kernel at lane counts on both sides of its 16-byte
+    rows (B % 4) and sample counts on both sides of a pass; the first
+    lanes all zero (lane 0) and with n at S, 0, S + 5, -3 and S // 2."""
+    check_zero_runs(*zero_run_case(B, S, zero_share, seed=B + S), cuda)
+
+
+@pytest.mark.parametrize("strip", [8, 16])
+def test_zero_runs_every_strip_across_passes(cuda, strip, monkeypatch):
+    """Each strip width the C entry takes, forced: runs that cross the
+    row groups of a pass and the passes (512 and 1,024 rows) of a block,
+    breaks every 700 and every 3,000 samples, a misaligned plane (no
+    16-byte rows), and lanes past the last full strip."""
+    from alacnet_tpu_torch.ops.cuda import zero_runs
+
+    monkeypatch.setattr(zero_runs, "pick_strip", lambda B, sms: strip)
+    errs, n = zero_run_case(37, 9000, 1.0, seed=strip)
+    errs[5, ::700] = 3
+    errs[6, 2999::3000] = -1
+    n[5:7] = 9000
+    n[7] = 8999
+    got = check_zero_runs(errs, n, cuda)
+    assert got[5, 1] == 698 and got[6, 0] == 2998
+    dev_errs = torch.from_numpy(errs.T.copy()).to(cuda)
+    buf = torch.zeros(dev_errs.numel() + 1, dtype=torch.int32, device=cuda)
+    buf[1:] = dev_errs.reshape(-1)
+    view = buf[1:].view(dev_errs.shape)
+    nn = torch.from_numpy(n).to(cuda)
+    got = zero_runs.zero_run_lengths_fused(view, nn, kernel="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, zero_runs.zero_run_lengths_fused(view, nn, kernel="torch"))
+
+
+def test_zero_runs_one_launch_no_scratch(cuda, monkeypatch):
+    """One launch a call, and the wrapper allocates only its output."""
+    from alacnet_tpu_torch.ops.cuda import _lib
+    from alacnet_tpu_torch.ops.cuda.zero_runs import zero_run_lengths_fused
+
+    errs, n = zero_run_case(2048, 4096, 0.5, seed=9)
+    e = torch.from_numpy(errs.T.copy()).to(cuda)
+    nn = torch.from_numpy(n).to(cuda)
+    zero_run_lengths_fused(e, nn)
+    seen = []
+    monkeypatch.setattr(_lib, "launch", lambda name, *a: seen.append(name))
+    allocated = []
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: allocated.append(a) or real_empty(*a, **k))
+    zero_run_lengths_fused(e, nn)
+    assert seen == ["alac_zero_runs"]
+    assert allocated == [((4096, 2048),)]
+
+
+# ---- the pair and quad merge (pair_merge) ----
+
+#: Widths at the edges of the merge's three-word ladder.
+PAIR_WIDTHS = (0, 31, 32, 33, 64, 81, 96)
+
+
+def _mask_words(words, ws):
+    """(c0, c1, c2) uint32 cut to each sample's width: the value right-
+    aligned in the low ``ws`` bits of c0:c1:c2 (c2 the low word)."""
+    w = ws.astype(np.int64)
+    out = []
+    for i, lo in enumerate((64, 32, 0)):
+        nbits = np.clip(w - lo, 0, 32)
+        keep = np.where(nbits >= 32, 0xFFFFFFFF, (1 << np.minimum(nbits, 31)) - 1)
+        out.append((words[i].astype(np.int64) & keep).astype(np.uint32))
+    return out
+
+
+def pair_merge_case(B, S, seed, edge_share=0.05):
+    """(c0, c1, c2 (B, S) uint32, ws (B, S) int8): chunk planes as the
+    Rice stage writes them, widths mostly 0-24 with ``edge_share`` of
+    them at the ladder's edges (PAIR_WIDTHS); lane 0 all width 0; lane 1
+    (S >= 4) two adjacent 81-bit samples at an even index (a pair past
+    96 bits: pws -1, fat, and a -1 pair poisoning its quad) and a 96-bit
+    sample; lane 2's words unmasked (bits above the width set)."""
+    rng = np.random.default_rng(seed)
+    ws = rng.integers(0, 25, (B, S))
+    edge = rng.random((B, S)) < edge_share
+    ws[edge] = rng.choice(PAIR_WIDTHS, int(edge.sum()))
+    ws[0] = 0
+    if B > 1 and S >= 4:
+        ws[1, 2:4] = 81
+        ws[1, S - 1] = 96
+    ws = ws.astype(np.int8)
+    words = rng.integers(0, 1 << 32, (3, B, S), dtype=np.uint64).astype(np.uint32)
+    c0, c1, c2 = _mask_words(words, ws)
+    if B > 2:
+        c0[2], c1[2], c2[2] = words[0, 2], words[1, 2], words[2, 2]
+    return c0, c1, c2, ws
+
+
+def pair_merge_edges():
+    """One lane whose pairs are every (wa, wb) of PAIR_WIDTHS in turn,
+    its quads every pair of those pairs; a second lane the same with
+    the words unmasked."""
+    combos = [(a, b) for a in PAIR_WIDTHS for b in PAIR_WIDTHS]
+    ws = np.array([w for c in combos for w in c] * 2, np.int8).reshape(2, -1)
+    rng = np.random.default_rng(len(combos))
+    words = rng.integers(0, 1 << 32, (3,) + ws.shape, dtype=np.uint64).astype(np.uint32)
+    c0, c1, c2 = _mask_words(words, ws)
+    c0[1], c1[1], c2[1] = words[:, 1]
+    return c0, c1, c2, ws
+
+
+def pair_merge_planes(case, layout, dev):
+    """The case's planes as (B, S) tensors on ``dev``: ``sample_major``
+    the transposed views of (S, B) storage, as enc_rice returns them;
+    ``lane_major`` contiguous rows; ``misaligned`` sample-major views one
+    element into a larger buffer."""
+    out = []
+    for x in case:
+        t = torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x).to(dev)
+        if layout == "lane_major":
+            out.append(t)
+            continue
+        sb = t.t().contiguous()
+        if layout == "misaligned":
+            buf = torch.zeros(sb.numel() + 1, dtype=sb.dtype, device=dev)
+            buf[1:] = sb.reshape(-1)
+            sb = buf[1:].view(sb.shape)
+        out.append(sb.t())
+    return out
+
+
+def check_pair_merge(planes, quads, dev):
+    """``merge_pair_chunks_fused`` through the kernel (one launch,
+    lane-major contiguous planes) and the plain version, bit for bit."""
+    from alacnet_tpu_torch.ops.cuda import _lib
+    from alacnet_tpu_torch.ops.cuda.pair_merge import merge_pair_chunks_fused
+
+    before = _lib.LAUNCHES["pair_merge"]
+    got = merge_pair_chunks_fused(*planes, quads=quads, kernel="cuda")
+    _sync(got[0])
+    assert _lib.LAUNCHES["pair_merge"] == before + 1
+    want = merge_pair_chunks_fused(*planes, quads=quads, kernel="torch")
+    assert len(got) == len(want) == (10 if quads else 5)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+        assert g.is_contiguous()
+    return got
+
+
+@pytest.mark.parametrize("layout", ["sample_major", "lane_major", "misaligned"])
+@pytest.mark.parametrize("quads", [False, True])
+@pytest.mark.parametrize("B,S", [(1, 1), (3, 2), (5, 3), (33, 63), (31, 65), (130, 255),
+                                 (129, 1001), (2048, 4096), (1920, 4096)])
+def test_pair_merge_kernel_matches_plain(cuda, B, S, quads, layout):
+    got = check_pair_merge(pair_merge_planes(pair_merge_case(B, S, seed=B + S), layout, cuda),
+                           quads, cuda)
+    if B > 1 and S >= 4:
+        assert got[3][1, 1] == -1 and bool(got[4][1])
+        if quads:
+            assert bool(got[9][1])
+
+
+@pytest.mark.parametrize("quads", [False, True])
+def test_pair_merge_ladder_edges(cuda, quads):
+    """Every pair of widths at the ladder's edges (a 96-bit B rolls A
+    out of the words; a pair past 96 bits is -1), and the quads of them."""
+    got = check_pair_merge(pair_merge_planes(pair_merge_edges(), "sample_major", cuda),
+                           quads, cuda)
+    assert bool(got[4][0]) and (got[3][0] == -1).any()
+
+
+@pytest.mark.parametrize("quads", [False, True])
+def test_pair_merge_through_encode_stages(cuda, quads):
+    """``encode_stages`` with pairs (and quads) launches the merge once a
+    call, its planes lane-major, equal to the plain route's."""
+    from alacnet_tpu_torch.ops.cuda import _lib
+    from alacnet_tpu_torch.ops.encode import encode_stages
+
+    B, S = 512, 4096
+    sig, n, lp, rp = _enc_inputs(B, S, 6, cuda)
+    before = _lib.LAUNCHES["pair_merge"]
+    got = encode_stages(sig, n, lp, rp, S, max_order=6, pairs=True, quads=quads)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["pair_merge"] == before + 1
+    want = encode_stages(sig, n, lp, rp, S, max_order=6, pairs=True, quads=quads,
+                         kernel="torch")
+    assert len(got) == len(want) == (12 if quads else 7)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert all(p.is_contiguous() for p in got[:4])
+
+
+def test_pair_merge_refused_launch_raises_without_fallback(cuda, monkeypatch):
+    """A refused pair_merge launch raises from ``encode_stages`` under
+    ``kernel="auto"``; the plain merge is never reached."""
+    from alacnet_tpu_torch.ops.cuda import _lib, pair_merge
+    from alacnet_tpu_torch.ops.encode import encode_stages
+
+    lib = _lib.get_lib()
+
+    class Refusing:
+        def __getattr__(self, name):
+            if name == "alac_pair_merge":
+                return lambda *args: 9  # cudaErrorInvalidConfiguration
+            return getattr(lib, name)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain merge ran on CUDA tensors")
+
+    monkeypatch.setattr(_lib, "_lib", Refusing())
+    monkeypatch.setattr(pair_merge, "merge_pair_chunks_plain", no_plain)
+    sig, n, lp, rp = _enc_inputs(33, 255, 6, cuda)
+    with pytest.raises(RuntimeError, match="alac_pair_merge: CUDA error 9"):
+        encode_stages(sig, n, lp, rp, 255, max_order=6, pairs=True, quads=True)
     torch.cuda.synchronize()
