@@ -431,7 +431,7 @@ def _device_stage(staged: _Staged, S: int, config: DecodeConfig, check,
     cuda = dev.type == "cuda"
     copies = [None]
     if staged.max_w is not None:
-        first = blob_words(staged.blob, dev, max_w=staged.max_w)
+        first = blob_words(staged.blob, dev, max_w=staged.max_w, kernel=config.kernel)
         n = _copies(first.numel() * first.element_size()) if cuda else 1
         copies = [first] + [first.clone() for _ in range(n - 1)]
 
@@ -526,7 +526,7 @@ def run_benchmark(
         )
         profile = {}
         if trace_dir is not None:
-            bw = blob_words(staged.blob, dev, max_w=staged.max_w)
+            bw = blob_words(staged.blob, dev, max_w=staged.max_w, kernel=config.kernel)
             profile = profile_busy(
                 lambda: [launch_frame_batch(b, frame_samples, config, bw)
                          for b in staged.batches],

@@ -62,7 +62,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 #: C signatures: every pointer and the stream as c_void_p, ints as c_int,
-#: element strides as c_longlong.
+#: element strides and word counts as c_longlong.
 _SIGNATURES = {
     "alac_pack_rows": [_P, _I, _P, _P, _I, _I, _I, _P, _P],
     "alac_rice_lpc": [_P, _I, _I] + [_P] * 10 + [_I, _I, _I, _P, _P, _P],
@@ -73,6 +73,8 @@ _SIGNATURES = {
     "alac_dec_epilogue": [_P, _P, _I, _I] + [_P] * 4 + [_P] * 7 + [_I, _I, _I, _P, _P],
     "alac_zero_runs": [_P, _P, _I, _I, _I, _P, _P],
     "alac_pair_merge": [_P] * 4 + [_L] * 4 + [_I] * 3 + [_P] * 9 + [_P],
+    "alac_blob_words": [_P, _L, _I, _L, _P, _P],
+    "alac_enc_prologue": [_P, _P] + [_I] * 6 + [_P, _P],
 }
 
 

@@ -3,7 +3,8 @@
 The counterpart of ``alacnet_tpu/ops/pallas/pack_rows.py``.  The host
 ships the raw coded blob to the device once, as a zero-copy
 little-endian word view (``host_le_words``); ``blob_words`` byte-swaps
-it there into the big-endian word domain of the bit readers, and
+it there into the big-endian word domain of the bit readers (kernel 10,
+``csrc/blob_words.cu``, through :func:`blob_words_fused`), and
 ``pack_rows`` (kernel 1, ``csrc/pack_rows.cu``) cuts each lane's row out
 of it, zeroing every byte at or after the frame's end.
 
@@ -60,12 +61,10 @@ def host_le_words(
     return w32, tail_be, nq
 
 
-def blob_words(blob_u8: np.ndarray, device, max_w: int = 0) -> torch.Tensor:
-    """Byte blob -> (Nq, 128) big-endian words (int32 patterns) on
-    ``device``: one H2D copy of the little-endian view, then a byteswap
-    in int32 ops there."""
-    w32, tail_be, nq = host_le_words(blob_u8, max_w)
-    x = h2d(w32.view(np.int32), torch.device(device))
+def blob_words_plain(x: torch.Tensor, tail_be: int, nq: int) -> torch.Tensor:
+    """Plain torch version of :func:`blob_words_fused` (``_words_from_le``
+    of the JAX package): a byteswap in int32 ops, a zero fill, the
+    swapped words copied in and the tail word filled in."""
     be = (
         ((x & 0xFF) << 24)
         | ((x & 0xFF00) << 8)
@@ -74,8 +73,50 @@ def blob_words(blob_u8: np.ndarray, device, max_w: int = 0) -> torch.Tensor:
     )
     out = torch.zeros(nq * QL, dtype=torch.int32, device=x.device)
     out[: x.shape[0]] = be
-    out[x.shape[0]] = tail_be - (1 << 32) if tail_be >= 1 << 31 else tail_be
+    # a fill, not a scalar copy from the host: CUDA graphs can capture it
+    out[x.shape[0] : x.shape[0] + 1].fill_(_i32(tail_be))
     return out.view(nq, QL)
+
+
+def _i32(v: int) -> int:
+    """A uint32 value as its int32 bit pattern."""
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def blob_words_fused(
+    x: torch.Tensor, tail_be: int, nq: int, kernel: str = "auto"
+) -> torch.Tensor:
+    """Device half of :func:`blob_words`: the uploaded little-endian
+    words ``x`` (m,) int32 -> (nq, 128) int32 big-endian words: word
+    i < m is ``bswap(x[i])``, word m the tail word ``tail_be``, every
+    later word 0.  On the kernel route one launch of
+    ``csrc/blob_words.cu`` writes every output word."""
+    if not _lib.use_kernel(x, kernel):
+        return blob_words_plain(x, tail_be, nq)
+    m = x.shape[0]
+    total = nq * QL
+    if x.dim() != 1 or not m < total or not 0 <= tail_be < 1 << 32:
+        raise ValueError(f"blob_words: need {m} words < {total} and a uint32 tail, "
+                         f"got shape {tuple(x.shape)}, tail {tail_be}")
+    dev = x.device
+    _lib.check_i32("x", x, (m,), dev)
+    out = torch.empty((nq, QL), dtype=torch.int32, device=dev)
+    _lib.launch(
+        "alac_blob_words", dev, x.data_ptr() if m else None, m, _i32(tail_be),
+        total, out.data_ptr(),
+    )
+    return out
+
+
+def blob_words(
+    blob_u8: np.ndarray, device, max_w: int = 0, kernel: str = "auto"
+) -> torch.Tensor:
+    """Byte blob -> (Nq, 128) big-endian words (int32 patterns) on
+    ``device``: one H2D copy of the little-endian view, then the
+    byteswap and padding there (:func:`blob_words_fused`)."""
+    w32, tail_be, nq = host_le_words(blob_u8, max_w)
+    x = h2d(w32.view(np.int32), torch.device(device))
+    return blob_words_fused(x, tail_be, nq, kernel=kernel)
 
 
 def _mask_tail(rows: torch.Tensor, nbytes: torch.Tensor) -> torch.Tensor:

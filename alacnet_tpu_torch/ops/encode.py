@@ -442,28 +442,19 @@ def encode_stages_pcm(
     ``stereo``: (F,) bool.  The extra-bits strip (``>> ub8``), stereo
     decorrelation (AlacFile.cs mid/side inverse run forward:
     cb = L - R, ca = R + ((cb*lw) >> sh)) and the channel fold into 2F
-    lanes run on the device.  ``wide`` marks post-strip sample widths
-    over 16 bits (24-bit no-extra-bits content), where |cb| * leftweight
-    can pass 2^31: the product is then taken in int64 and truncated to
-    int32, as the host encoder does (the JAX package emulates the same
-    bits with a split int32 product).  Narrow content multiplies
-    directly: no product overflows.
+    lanes run on the device, in one call of the ``enc_prologue`` kernel's
+    wrapper (``ops/cuda/enc_prologue.py``), whose sample-major (S, 2F)
+    output goes on as its (2F, S) view, so that the predictor kernel
+    reads it without a transposing copy.  ``wide`` marks post-strip
+    sample widths over 16 bits (24-bit no-extra-bits content), where
+    |cb| * leftweight can pass 2^31: the product is then taken in int64
+    and truncated to int32, as the host encoder does (the JAX package
+    emulates the same bits with a split int32 product).  Narrow content
+    multiplies directly: no product overflows.
     """
-    hi = (pcm >> ub8) if ub8 else pcm
-    l_ch, r_ch = hi[:, :, 0], hi[:, :, 1]
-    if lw != 0:
-        cb = l_ch - r_ch
-        if wide:
-            adj = wrap32((cb.to(I64) * lw) >> sh)
-        else:
-            adj = (cb * lw) >> sh
-        ca = r_ch + adj
-    else:
-        ca, cb = l_ch, r_ch
-    st = stereo[:, None]
-    sig = torch.cat(
-        [torch.where(st, ca, l_ch).to(I32), torch.where(st, cb, 0).to(I32)]
-    )
+    from .cuda.enc_prologue import encode_prologue_fused
+
+    sig = encode_prologue_fused(pcm, stereo, lw, sh, ub8, wide, kernel=kernel).t()
     return encode_stages(
         sig, n, lp, rp, num_samples, max_order=max_order, kernel=kernel,
         pairs=pairs, quads=quads,

@@ -370,10 +370,11 @@ def decode_blob(
     bwords = None
     if max_w is not None and mesh is not None:
         bwords = mesh.replicated(
-            lambda d: blob_words(np.asarray(blob), d, max_w=max_w)
+            lambda d: blob_words(np.asarray(blob), d, max_w=max_w, kernel=config.kernel)
         )
     elif max_w is not None:
-        bwords = blob_words(np.asarray(blob), config.torch_device, max_w=max_w)
+        bwords = blob_words(np.asarray(blob), config.torch_device, max_w=max_w,
+                            kernel=config.kernel)
     outs, ns, sts = [], [], []
     pending: list = []
 

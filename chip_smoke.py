@@ -7,37 +7,48 @@ It needs one CUDA device, the CUDA toolkit (``nvcc``) and this
 repository's checkout; it imports nothing of JAX.  Phases, each fatal
 on failure, each printing its seconds:
 
-1. build — the nine CUDA kernels (``alacnet_tpu_torch/csrc/*.cu``, one
+1. build — the eleven CUDA kernels (``alacnet_tpu_torch/csrc/*.cu``, one
    nvcc process per source, all at once, then one link) and the native
    host tier, from the checkout's sources, into
    ``alacnet_tpu_torch/_build/``; prints the build times and the
    compiler's register/spill report;
 2. kernels — one pass of the pooled decode below, recording every call
-   of ``pack_rows``, ``fused_rice_lpc``, ``bulk_bits`` and
-   ``decode_epilogue`` that the main path makes, and each call's group:
+   of ``blob_words_fused``, ``pack_rows``, ``fused_rice_lpc``,
+   ``bulk_bits`` and ``decode_epilogue`` that the main path makes, and
+   each call's group:
    its place in the frame batch
    (channel A or B) and the batch's formats (channels, bits, extra
    bits, raw frames); each recorded call is run through the CUDA kernel
    (timed with CUDA events after a warm-up), and the first call of each
    group — then further calls while the kernel's plain total stays under
    ``PLAIN_BUDGET_S`` — through its plain torch version on the same card
-   tensors too, bit for bit; ``pack_rows``, ``bulk_bits`` and
-   ``dec_epilogue`` are timed on the card alone too (CUDA-graph replays);
+   tensors too, bit for bit; ``blob_words``, ``pack_rows``,
+   ``bulk_bits`` and ``dec_epilogue`` are timed on the card alone too
+   (CUDA-graph replays);
 3. e2e — ``alacnet_tpu_torch.decode_streams`` on the 8 smoke files
    (``tests/fixtures/torch_smoke``), each given 96 times as an
    in-memory stream (11,520 frames); every file's PCM sha256 must equal
-   ``expected.json`` (the JAX package's decode), all four decode
-   kernels' launch counts must rise, and the rate, the wall time and the
+   ``expected.json`` (the JAX package's decode), all five decode
+   kernels' launch counts must rise (``blob_words`` once: one
+   ``decode_blob`` call), and the rate, the wall time and the
    device time (CUDA events around the device work the pipeline queues;
    and, from a second run under torch.profiler, the busy time by op) are
-   printed beside the card's name and power limit;
+   printed beside the card's name and power limit.  Then the decode
+   profile, in a process of its own (this script with
+   ``--decode-profile``): the same pooled decode once more under
+   ``torch.profiler``, each device kernel and copy attributed to its
+   Python site (``DEC_PROFILE_SITES``: the blob's upload and byteswap,
+   the dispatch, each kernel wrapper, ``_decode_frames_impl``'s own ops,
+   the D2H copies), its op and its class, on a ``decode_profile`` line;
+   the ``blob_words`` site must show one kernel and no elementwise op;
 4. encode kernels — one pooled ``alacnet_tpu_torch.encode_files(
    device="cuda")`` run over the PCM that phase 3 decoded (each file 96
    times: 10,944 frames of 4096 samples — orders.m4a's 16 short frames
    re-encode as 10 — in 12 chunks of at most 1024 frames, three
-   format groups), recording every ``predictor_errors_fused``,
-   ``zero_run_lengths_fused``, ``rice_merge_fused`` and
-   ``merge_pair_chunks_fused`` call and, per chunk, the host prep and the
+   format groups), recording every ``encode_prologue_fused``,
+   ``predictor_errors_fused``, ``zero_run_lengths_fused``,
+   ``rice_merge_fused`` and ``merge_pair_chunks_fused`` call and, per
+   chunk, the host prep and the
    payloads the production pair packer wrote; every recorded call runs
    through the CUDA kernel (timed with CUDA events), and the first call
    of each format group — then further calls while the plain total
@@ -50,7 +61,7 @@ on failure, each printing its seconds:
    package's encoder), one copy per file must equal the port's host
    ``AlacEncoder``, every output must decode on the card back to the PCM
    of ``expected.json``, the native pair packer must be the packer that
-   ran, and the four encode kernels must each launch once a chunk (an
+   ran, and the five encode kernels must each launch once a chunk (an
    ``encode_launches_per_call`` line); the rate, the
    wall time, the stage times, the device time from CUDA events and a
    profiler busy-by-op are printed beside the card's name and power
@@ -60,7 +71,8 @@ on failure, each printing its seconds:
    its Python site (``ENC_PROFILE_SITES``: the dispatch, its uploads,
    the prologue, the sample-major transposes, each kernel wrapper, the
    D2H copies), its op and its class (elementwise, reduction, copy),
-   on an ``encode_profile`` line;
+   on an ``encode_profile`` line; the prologue must launch one kernel a
+   chunk and the sample-major site nothing;
 6. symbol-plane route — every recorded ``rice_merge_fused`` call of
    phase 4 (its arguments are ``rice_symbols``') through
    ``rice_symbols_fused`` on the card (the ``rice_emit`` kernel), its
@@ -123,13 +135,16 @@ on failure, each printing its seconds:
    on the first card (``TWO_SHARDS``: two streams), each against
    ``expected.json``, with every launch's stream recorded (``_lib.launch``
    wrapped): under two shards each decode kernel must launch on both shard
-   streams and on no other; ``encode_files(mesh=)`` of each smoke file's
-   PCM over the two shards against ``encode_expected.json`` (both encode
-   kernels on both streams) and ``encode_frames_device(mesh=)`` of a
-   ragged slice of music.m4a's PCM against the single device and the
-   host encoder; every call the two-shard decode and encode made to the
-   eight kernel wrappers, recorded with its stream, and the first on each
-   shard stream — then more while the kernel's plain total stays under
+   streams and on no other, but ``blob_words`` once for the one distinct
+   device, on its current stream, before the shards;
+   ``encode_files(mesh=)`` of each smoke file's PCM over the two shards
+   against ``encode_expected.json`` (every encode kernel on both
+   streams) and ``encode_frames_device(mesh=)`` of a ragged slice of
+   music.m4a's PCM against the single device and the host encoder;
+   every call the two-shard decode and encode made to the ten kernel
+   wrappers, recorded with its stream, and the first on each shard
+   stream (``blob_words``' call replayed on each) — then more while the
+   kernel's plain total stays under
    ``MESH_PLAIN_BUDGET_S`` — run again on that stream through the
    kernel and the plain version, bit for bit (``mesh_kernel_check``
    lines); the port's ``dryrun_multichip(2, TWO_SHARDS)``; the
@@ -169,9 +184,10 @@ on failure, each printing its seconds:
    at ``SOAK_MINUTES`` (six formats, 32,040,000 samples): every file's
    ``encode_m4a(device="cuda")`` bytes against the host encoder's, the
    pooled ``decode_files`` bit-exact per file, the encode and decode
-   walls and rates; ``pack_rows``, ``rice_lpc``, ``bulk_bits``,
-   ``dec_epilogue``, ``enc_pred``, ``zero_runs``, ``enc_rice`` and
-   ``pair_merge`` must launch (counts set to 0 just
+   walls and rates; ``blob_words``, ``pack_rows``, ``rice_lpc``,
+   ``bulk_bits``, ``dec_epilogue``, ``enc_prologue``, ``enc_pred``,
+   ``zero_runs``, ``enc_rice`` and ``pair_merge`` must launch (counts
+   set to 0 just
    before, read just after: the ``kernels`` line's ``soak_launches``);
    each wrapper call of the soak is recorded and, after it, run again
    through the kernel and the plain version, bit for bit: the first call
@@ -209,7 +225,8 @@ exists (``pack_rows``: ``torch.take`` of the rows, timed as ``ms``),
 else null; the ``kernel_check`` line also times the two in turns
 (``time_against_library``), and ``library_over_kernel`` is the ratio of
 their medians from the host.  ``DEVICE_TIMED`` kernels (``pack_rows``,
-``bulk_bits``, ``dec_epilogue``, ``zero_runs``, ``pair_merge``) also get ``device_ms``
+``bulk_bits``, ``dec_epilogue``, ``zero_runs``, ``pair_merge``,
+``blob_words``, ``enc_prologue``) also get ``device_ms``
 and ``device_bound_share`` (bound
 over card-alone time) in their ``kernel_check`` line, and ``bulk_bits``
 ``interface_bytes`` and ``interface_bound_ms``: the bytes with the zeros
@@ -252,16 +269,22 @@ KERNELS = {
     "dec_epilogue": "alacnet_tpu/ops/frame_decode.py:392",
     "zero_runs": "alacnet_tpu/ops/pallas/enc_stages.py:566",
     "pair_merge": "alacnet_tpu/ops/encode.py:324",
+    "blob_words": "alacnet_tpu/ops/pallas/pack_rows.py:110",
+    "enc_prologue": "alacnet_tpu/ops/encode.py:465",
 }
 #: The path whose run each kernel's launch count comes from.
 KERNEL_PATHS = {
-    **dict.fromkeys(("pack_rows", "rice_lpc", "bulk_bits", "dec_epilogue"),
+    **dict.fromkeys(("blob_words", "pack_rows", "rice_lpc", "bulk_bits", "dec_epilogue"),
                     "decode_streams"),
-    **dict.fromkeys(("enc_pred", "enc_rice", "zero_runs", "pair_merge"), "encode_files"),
+    **dict.fromkeys(("enc_prologue", "enc_pred", "enc_rice", "zero_runs", "pair_merge"),
+                    "encode_files"),
     "rice_emit": "symbol-plane route",
 }
-DECODE_KERNELS = ("pack_rows", "rice_lpc", "bulk_bits", "dec_epilogue")
-ENCODE_KERNELS = ("enc_pred", "enc_rice", "zero_runs", "pair_merge")
+DECODE_KERNELS = ("blob_words", "pack_rows", "rice_lpc", "bulk_bits", "dec_epilogue")
+ENCODE_KERNELS = ("enc_prologue", "enc_pred", "enc_rice", "zero_runs", "pair_merge")
+#: The decode kernels that run once a decode_blob call for each distinct
+#: device, on its current stream, before the mesh's shards take over.
+REPLICATED_KERNELS = ("blob_words",)
 #: The encode kernels of the pair-plane routes only: the device-pack
 #: routes take the classic planes, with no pair merge.
 PAIR_KERNELS = ("pair_merge",)
@@ -279,7 +302,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: tap of a live sample (``tap``), per output word (``word``), per
 #: (lane, sample) position of the output (``position``), per pair and
 #: per quad of the output (``pair``, ``quad``: merge_pair_chunks' ~40
-#: operations, and merge_quad_chunks' clamp and poisoning besides).
+#: operations, and merge_quad_chunks' clamp and poisoning besides), per
+#: blob word swapped (``blob_word``: 4 masks, 4 shifts, 3 ors) and per
+#: frame-sample of the prologue (``frame_sample``: the strip's 2 shifts,
+#: the difference, product, shift and sum, the 2 selects).
 INT_OPS = {
     "pack_rows": {"word": 6},
     "rice_lpc": {"sample": 40, "tap": 4},
@@ -290,6 +316,8 @@ INT_OPS = {
     "dec_epilogue": {"sample": 24},
     "zero_runs": {"position": 4},
     "pair_merge": {"pair": 40, "quad": 43},
+    "blob_words": {"blob_word": 11},
+    "enc_prologue": {"frame_sample": 8},
 }
 #: Rounds of (kernel, library call) in turns per call where a library
 #: call computes the kernel's function (``pack_rows``: ``torch.take``),
@@ -297,7 +325,8 @@ INT_OPS = {
 ALT_ROUNDS = 7
 #: Kernels whose calls are also timed on the card alone (``device_ms``):
 #: tens of microseconds of kernel, under the wrapper's host work.
-DEVICE_TIMED = ("pack_rows", "bulk_bits", "dec_epilogue", "zero_runs", "pair_merge")
+DEVICE_TIMED = ("pack_rows", "bulk_bits", "dec_epilogue", "zero_runs", "pair_merge",
+                "blob_words", "enc_prologue")
 #: Frames per window and per resumable chunk of phase 7's checks.
 API_WINDOW = 4
 RESUME_FRAMES = 5
@@ -306,8 +335,10 @@ LONG_COPIES = 94
 #: The kernels the bench's paths launch (rice_emit is on no encoder path).
 BENCH_KERNELS = DECODE_KERNELS + ENCODE_KERNELS
 #: Where encode_stages_fused calls each encode kernel wrapper, and
-#: ops/encode.encode_stages the pair merge's.
+#: ops/encode.encode_stages the pair merge's and encode_stages_pcm the
+#: prologue's.
 ENC_CALL_SITES = {
+    "enc_prologue": ("alacnet_tpu_torch.ops.cuda.enc_prologue", "encode_prologue_fused"),
     **{k: ("alacnet_tpu_torch.ops.cuda.enc_stages", attr)
        for k, attr in (("enc_pred", "predictor_errors_fused"),
                        ("enc_rice", "rice_merge_fused"),
@@ -328,13 +359,19 @@ DEVICE_SITES = {
 }
 #: Where the pipeline queues each frame batch's decode.
 DISPATCH_SITE = {"dispatch": ("alacnet_tpu_torch.parallel.pipeline", "dispatch_frame_batch")}
-#: Where frame_decode / pipeline call each kernel wrapper.
+#: Where pack_rows.blob_words, frame_decode and pipeline call each
+#: kernel wrapper.
 CALL_SITES = {
+    "blob_words": ("alacnet_tpu_torch.ops.cuda.pack_rows", "blob_words_fused"),
     "pack_rows": ("alacnet_tpu_torch.parallel.pipeline", "pack_rows"),
     "rice_lpc": ("alacnet_tpu_torch.ops.frame_decode", "fused_rice_lpc"),
     "bulk_bits": ("alacnet_tpu_torch.ops.frame_decode", "bulk_bits"),
     "dec_epilogue": ("alacnet_tpu_torch.ops.frame_decode", "decode_epilogue"),
 }
+#: Kernels whose device work the profiles count under the site that
+#: calls their wrapper (``blob_words`` under the pipeline's blob upload,
+#: ``enc_prologue`` under ``encode_stages_pcm``), as each tree runs it.
+KERNEL_SITE_OWNERS = ("blob_words", "enc_prologue")
 
 
 def emit(obj) -> None:
@@ -411,7 +448,7 @@ def record_calls(names, data, config):
 
     calls = {k: [] for k in CALL_SITES}
     groups = {k: [] for k in CALL_SITES}
-    batch = {}
+    batch = {"formats": None, "placed": {}}  # the blob's words come before any batch
 
     def make(key, orig):
         def rec(*args, **kwargs):
@@ -500,6 +537,17 @@ def call_work(name: str, args, kwargs, got) -> tuple[int, int]:
         Q = -(-P // 2) if kwargs.get("quads") else 0
         return (13 * B * S + 13 * B * P + B + (13 * B * Q + B if Q else 0),
                 ops["pair"] * B * P + ops["quad"] * B * Q)
+    if name == "blob_words":
+        # the whole words read, every word of the padded blob written
+        x, _, nq = args[:3]
+        return 4 * x.shape[0] + 4 * nq * 128, ops["blob_word"] * x.shape[0]
+    if name == "enc_prologue":
+        # a stereo frame's (L, R) pairs read, a mono frame's L alone, the
+        # flags, and both lanes of every frame-sample written
+        pcm, stereo = args[:2]
+        F, S = pcm.shape[:2]
+        st = _isum(stereo)
+        return 8 * st * S + 4 * (F - st) * S + F + 8 * F * S, ops["frame_sample"] * F * S
     if name == "enc_pred":
         _, n, lp, S = args[:4]
         nn = torch.clamp(n, 0, S)
@@ -534,7 +582,9 @@ def library_call(name: str, args):
     import torch
 
     if name != "pack_rows":
-        return None  # sequential recurrences per lane: no such call
+        # sequential recurrences per lane, or (blob_words, enc_prologue)
+        # a byteswap with padding, a fold with a transpose: no such call
+        return None
     bwords, ow, _, W = args[:4]
     flat = bwords.reshape(-1)
     idx = torch.clamp(
@@ -706,6 +756,7 @@ def decode_fns() -> dict:
     from alacnet_tpu_torch.ops.cuda import bulk_bits, epilogue, pack_rows, rice_lpc
 
     return {
+        "blob_words": pack_rows.blob_words_fused,
         "pack_rows": pack_rows.pack_rows,
         "rice_lpc": rice_lpc.fused_rice_lpc,
         "bulk_bits": bulk_bits.bulk_bits,
@@ -771,6 +822,8 @@ def run_e2e(names, data, expected, config, card: str):
     missing = [k for k in DECODE_KERNELS if launches.get(k, 0) == 0]
     if missing:
         raise RuntimeError(f"the main path launched no {missing} kernel")
+    if launches["blob_words"] != 1:  # one decode_blob call
+        raise RuntimeError(f"{launches['blob_words']} blob_words launches, expected 1")
     frames = sum(expected[n]["frames"] for n in names) * COPIES
     samples = stats["samples"]
     if samples != sum(expected[n]["samples"] for n in names) * COPIES:
@@ -884,9 +937,12 @@ def run_symbol_route(rice_calls, chunks) -> dict:
 
 
 def enc_fns() -> dict:
-    from alacnet_tpu_torch.ops.cuda import enc_stages, pair_merge, rice_emit, zero_runs
+    from alacnet_tpu_torch.ops.cuda import (
+        enc_prologue, enc_stages, pair_merge, rice_emit, zero_runs,
+    )
 
     return {
+        "enc_prologue": enc_prologue.encode_prologue_fused,
         "enc_pred": enc_stages.predictor_errors_fused,
         "enc_rice": enc_stages.rice_merge_fused,
         "rice_emit": rice_emit.rice_symbols_fused,
@@ -1018,16 +1074,31 @@ def run_encode_e2e(decoded, names, expected, enc_expected, card: str) -> dict:
 #: range in the encode profile (``encode_profile``): a kernel or copy
 #: belongs to the innermost range around the op that queued it.  Sites
 #: a tree lacks are left out (the parent tree of the pair_merge kernel
-#: runs the plain merge_pair_chunks / merge_quad_chunks).
+#: runs the plain merge_pair_chunks / merge_quad_chunks).  The prologue
+#: is ``encode_stages_pcm``'s own device work (the ``enc_prologue``
+#: kernel, or a tree's chain of torch ops), so its wrapper is no site of
+#: its own.
 ENC_PROFILE_SITES = {
     "dispatch": ("alacnet_tpu_torch.codec.encoder_device", "_dispatch"),
     "h2d": ("alacnet_tpu_torch.codec.encoder_device", "h2d"),
     "prologue": ("alacnet_tpu_torch.ops.encode", "encode_stages_pcm"),
     "sample_major": ("alacnet_tpu_torch.ops.cuda.enc_stages", "_sample_major"),
-    **ENC_CALL_SITES,
+    **{k: v for k, v in ENC_CALL_SITES.items() if k not in KERNEL_SITE_OWNERS},
     "pair_merge_plain": ("alacnet_tpu_torch.ops.encode", "merge_pair_chunks"),
     "quad_merge_plain": ("alacnet_tpu_torch.ops.encode", "merge_quad_chunks"),
     "d2h": ("alacnet_tpu_torch.codec.encoder_device", "d2h_async"),
+}
+#: The Python sites of the pooled decode's device work, for the decode
+#: profile (``decode_profile``): the blob's upload and its byteswap
+#: (``blob_words``, whose kernel counts there), each frame batch's
+#: dispatch (its uploads), each kernel wrapper, ``_decode_frames_impl``'s
+#: own ops (``decode_frames``) and the D2H copies.
+DEC_PROFILE_SITES = {
+    "blob_words": DEVICE_SITES["blob_words"],
+    "dispatch": DEVICE_SITES["dispatch_frame_batch"],
+    **{k: v for k, v in CALL_SITES.items() if k not in KERNEL_SITE_OWNERS},
+    "decode_frames": ("alacnet_tpu_torch.ops.frame_decode", "_decode_frames_impl"),
+    "d2h": DEVICE_SITES["d2h_async"],
 }
 #: Kernel-name fragments and the class each is counted under.
 KERNEL_CLASSES = (
@@ -1035,8 +1106,8 @@ KERNEL_CLASSES = (
     ("Memset", "memset"), ("reduce_kernel", "reduce"), ("CatArrayBatchedCopy", "cat"),
     ("elementwise_kernel", "elementwise"),
 )
-#: Seconds phase 5's encode-profile process may take.
-ENCODE_PROFILE_TIMEOUT_S = 300
+#: Seconds each profile process (phase 3's decode, phase 5's encode) may take.
+PROFILE_TIMEOUT_S = 300
 
 
 def kernel_class(name: str) -> str:
@@ -1049,23 +1120,19 @@ def kernel_class(name: str) -> str:
     return name.split("(")[0].split("<")[0].split("::")[-1]
 
 
-def encode_profile(decoded, names, card: str) -> dict:
-    """The pooled ``encode_files`` of phase 5 (each file COPIES times),
-    once to warm up, then once under ``torch.profiler`` with each site
-    of ``ENC_PROFILE_SITES`` a ``record_function`` range: each device
-    kernel and copy attributed to its site and op through the host call
-    that queued it (the runtime event of the same correlation id: the
-    innermost range and aten op around it; a kernel launched through
-    ctypes has no aten op), and to the kernel's class; the device
-    kernels a site launched, over the chunks (the calls of the
-    ``zero_runs`` site)."""
+def profile_by_site(run, site_map: dict, per: str) -> dict:
+    """``run()`` once under ``torch.profiler`` with each site of
+    ``site_map`` that this tree has a ``record_function`` range: each
+    device kernel and copy attributed to its site and op through the
+    host call that queued it (the runtime event of the same correlation
+    id: the innermost range and aten op around it; a kernel launched
+    through ctypes has no aten op), and to the kernel's class; the
+    device kernels a site launched, over the calls of site ``per``."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    import alacnet_tpu_torch
-
     sites = {}
-    for key, (mod_name, attr) in ENC_PROFILE_SITES.items():
+    for key, (mod_name, attr) in site_map.items():
         try:
             if hasattr(importlib.import_module(mod_name), attr):
                 sites[key] = (mod_name, attr)
@@ -1073,18 +1140,16 @@ def encode_profile(decoded, names, card: str) -> dict:
             pass
 
     def ranged(key, orig):
-        def run(*args, **kwargs):
+        def call(*args, **kwargs):
             with record_function(f"site:{key}"):
                 return orig(*args, **kwargs)
-        return run
+        return call
 
-    config = alacnet_tpu_torch.EncoderConfig()
-    encode_pooled(decoded, names, config)
     torch.cuda.synchronize()
     with wrapped(sites, ranged), \
             profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        encode_pooled(decoded, names, config)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_site, by_class, calls, runtime, device = {}, {}, {}, {}, []
@@ -1118,47 +1183,102 @@ def encode_profile(decoded, names, card: str) -> dict:
         key = f"{op} {cls}" if op else cls
         rec["by_op"][key] = rec["by_op"].get(key, 0.0) + ms
         by_class[cls] = by_class.get(cls, 0.0) + ms
-    chunks = calls.get("zero_runs", 0)
+    n = calls.get(per, 0)
     for rec in by_site.values():
         rec["by_op"] = dict(sorted(rec["by_op"].items(), key=lambda kv: -kv[1]))
-        rec["kernels_per_chunk"] = rec["kernels"] / chunks if chunks else None
-    out = {"wall_s": wall, "chunks": chunks, "device_busy_ms": busy_ms,
-           "elementwise_ms": sum(v for k, v in by_class.items()
-                                 if k in ("elementwise", "reduce", "cat")),
-           "by_class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
-           "by_site": dict(sorted(by_site.items(), key=lambda kv: -kv[1]["ms"])),
-           "site_calls": calls, "sites": sorted(sites), "card": card}
+        rec[f"kernels_per_{per}"] = rec["kernels"] / n if n else None
+    return {"wall_s": wall, per: n, "device_busy_ms": busy_ms,
+            "elementwise_ms": sum(v for k, v in by_class.items()
+                                  if k in ("elementwise", "reduce", "cat")),
+            "by_class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+            "by_site": dict(sorted(by_site.items(), key=lambda kv: -kv[1]["ms"])),
+            "site_calls": calls, "sites": sorted(sites)}
+
+
+def encode_profile(decoded, names, card: str) -> dict:
+    """The pooled ``encode_files`` of phase 5 (each file COPIES times),
+    once to warm up, then once more through ``profile_by_site`` over
+    ``ENC_PROFILE_SITES``: kernels a site launched are counted over the
+    chunks (the calls of the ``zero_runs`` site)."""
+    import alacnet_tpu_torch
+
+    config = alacnet_tpu_torch.EncoderConfig()
+    encode_pooled(decoded, names, config)
+    out = profile_by_site(lambda: encode_pooled(decoded, names, config),
+                          ENC_PROFILE_SITES, "zero_runs")
+    out["chunks"] = out.pop("zero_runs")
+    for rec in out["by_site"].values():
+        rec["kernels_per_chunk"] = rec.pop("kernels_per_zero_runs")
+    out["card"] = card
     emit({"encode_profile": out})
     return out
 
 
-def encode_profile_subprocess() -> dict:
-    """Phase 5's encode profile (``encode_profile``) in a process of its
-    own (this script with ``--encode-profile``): a long process's trace
-    may lose its first device events (``traced_stages_subprocess``).
-    Its ``encode_profile`` line is passed on."""
+def decode_profile(names, data, config, card: str) -> dict:
+    """Phase 3's pooled ``decode_streams`` (each file COPIES times),
+    once to warm up, then once more through ``profile_by_site`` over
+    ``DEC_PROFILE_SITES``: kernels a site launched are counted over the
+    frame batches (the calls of the ``dispatch`` site)."""
+    import alacnet_tpu_torch
+
+    def run():
+        alacnet_tpu_torch.decode_streams(pooled_streams(names, data), config=config)
+
+    run()
+    out = profile_by_site(run, DEC_PROFILE_SITES, "dispatch")
+    out["card"] = card
+    emit({"decode_profile": out})
+    return out
+
+
+def profile_subprocess(flag: str, key: str) -> dict:
+    """A profile (this script with ``flag``) in a process of its own: a
+    long process's trace may lose its first device events
+    (``traced_stages_subprocess``).  Its ``key`` line is passed on."""
     try:
-        res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--encode-profile"],
-                             capture_output=True, text=True,
-                             timeout=ENCODE_PROFILE_TIMEOUT_S)
+        res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), flag],
+                             capture_output=True, text=True, timeout=PROFILE_TIMEOUT_S)
     except subprocess.TimeoutExpired:
-        raise RuntimeError("the encode profile timed out")
+        raise RuntimeError(f"the {flag} process timed out")
     if res.returncode != 0:
-        raise RuntimeError(f"the encode profile exited {res.returncode}:\n"
+        raise RuntimeError(f"the {flag} process exited {res.returncode}:\n"
                            f"{(res.stdout + res.stderr)[-4000:]}")
     line = json.loads(res.stdout.strip().splitlines()[-1])
     emit(line)
-    return line["encode_profile"]
+    return line[key]
 
 
-def encode_profile_worker() -> int:
-    """``--encode-profile``: the smoke corpus decoded on the first card
-    (one copy a file), then ``encode_profile`` of its pooled encode, with
-    the kernels the parent process built (or this tree's, built here)."""
+def encode_profile_subprocess() -> dict:
+    """Phase 5's encode profile (``encode_profile``) in a process of its
+    own.  Fails unless the prologue site launched one kernel a chunk
+    (``enc_prologue``) and the sample-major site queued no device work
+    (the predictor takes the prologue's output without a copy)."""
+    prof = profile_subprocess("--encode-profile", "encode_profile")
+    sites = prof["by_site"]
+    prologue = sites.get("prologue", {}).get("kernels_per_chunk")
+    if prologue != 1 or "sample_major" in sites:
+        raise RuntimeError(f"encode profile: {prologue} prologue kernels a chunk, "
+                           f"sample_major {sites.get('sample_major')}")
+    return prof
+
+
+def decode_profile_subprocess() -> dict:
+    """Phase 3's decode profile (``decode_profile``) in a process of its
+    own.  Fails unless the blob_words site launched one kernel in all
+    (one ``decode_blob`` call) and no elementwise op."""
+    prof = profile_subprocess("--decode-profile", "decode_profile")
+    site = prof["by_site"].get("blob_words", {})
+    if site.get("kernels") != 1 or any("elementwise" in k for k in site.get("by_op", {})):
+        raise RuntimeError(f"decode profile: the blob_words site ran {site}")
+    return prof
+
+
+def _profile_worker(profile) -> int:
+    """``profile(names, data, card)`` on the smoke corpus, with the
+    kernels the parent process built (or this tree's, built here)."""
     sys.path.insert(0, str(ROOT))
     import torch
 
-    import alacnet_tpu_torch
     from alacnet_tpu_torch.ops.cuda import _lib
 
     if not torch.cuda.is_available():
@@ -1166,11 +1286,32 @@ def encode_profile_worker() -> int:
     clear_port_env()
     _lib.get_lib()
     names, data, _ = load_corpus()
-    results = alacnet_tpu_torch.decode_streams(
-        [io.BytesIO(data[n]) for n in names],
-        config=alacnet_tpu_torch.DecodeConfig(device=DEVICE))
-    encode_profile(dict(zip(names, results)), names, nvidia_smi())
+    profile(names, data, nvidia_smi())
     return 0
+
+
+def encode_profile_worker() -> int:
+    """``--encode-profile``: the smoke corpus decoded on the first card
+    (one copy a file), then ``encode_profile`` of its pooled encode."""
+    def run(names, data, card):
+        import alacnet_tpu_torch
+
+        results = alacnet_tpu_torch.decode_streams(
+            [io.BytesIO(data[n]) for n in names],
+            config=alacnet_tpu_torch.DecodeConfig(device=DEVICE))
+        encode_profile(dict(zip(names, results)), names, card)
+
+    return _profile_worker(run)
+
+
+def decode_profile_worker() -> int:
+    """``--decode-profile``: ``decode_profile`` of the pooled decode."""
+    def run(names, data, card):
+        import alacnet_tpu_torch
+
+        decode_profile(names, data, alacnet_tpu_torch.DecodeConfig(device=DEVICE), card)
+
+    return _profile_worker(run)
 
 
 def expected_sha(pcm, want) -> str:
@@ -1614,16 +1755,20 @@ def shard_recorder(calls):
 def compare_shard_calls(calls, fns, streams, budget_s) -> dict:
     """Phase 9's kernel checks: the calls the two-shard path made
     (``shard_recorder``), each run again on the shard stream it was
-    queued on, through the kernel and through the plain version, bit for
-    bit: the first call on each shard stream, then further calls while
-    the kernel's plain total stays under ``budget_s``.  Fails unless
-    every kernel was compared on every shard stream."""
+    queued on (a ``REPLICATED_KERNELS`` call, queued once a device
+    before the shards, on every shard stream), through the kernel and
+    through the plain version, bit for bit: the first call on each shard
+    stream, then further calls while the kernel's plain total stays
+    under ``budget_s``.  Fails unless every kernel was compared on every
+    shard stream."""
     import torch
 
     handles = [s.cuda_stream for s in streams]
     torch.cuda.synchronize()
     results = {}
     for name, recorded in calls.items():
+        if name in REPLICATED_KERNELS:
+            recorded = [(a, kw, s) for a, kw, _ in recorded for s in streams]
         fn = fns[name]
         err, plain_ms, compared, shapes = 0, 0.0, [], []
         by_stream = [0] * len(streams)
@@ -1680,13 +1825,21 @@ def mesh_decode(names, data, expected, mesh, calls) -> dict:
         check_pooled(results, names, expected, f"decode_streams({mesh})")
         del results
         handles = [s.cuda_stream for s in mesh.streams]
-        by_stream = {k: [seen.get((k, h), 0) for h in handles] for k in DECODE_KERNELS}
+        sharded = [k for k in DECODE_KERNELS if k not in REPLICATED_KERNELS]
+        by_stream = {k: [seen.get((k, h), 0) for h in handles] for k in sharded}
         idle = {k: c for k, c in by_stream.items() if 0 in c}
-        if idle or {h for _, h in seen} - set(handles):
+        if idle or {h for k, h in seen if k in sharded} - set(handles):
             raise RuntimeError(f"decode_streams({mesh}): kernels off the shard streams "
                                f"or idle on one: {by_stream}, {seen}")
+        # the blob's words: one launch for each distinct device (one
+        # decode_blob call), on its current stream
+        replicated = {k: sum(c for (kk, _), c in seen.items() if kk == k)
+                      for k in REPLICATED_KERNELS}
+        if any(c != len(set(mesh.devices)) for c in replicated.values()):
+            raise RuntimeError(f"decode_streams({mesh}): {replicated} launches, expected "
+                               f"one for each of {len(set(mesh.devices))} devices")
         out[label] = {"mesh": repr(mesh), "wall_s": wall, "launches": launches,
-                      "launches_by_stream": by_stream}
+                      "launches_by_stream": by_stream, "replicated_launches": replicated}
     return out
 
 
@@ -2180,7 +2333,8 @@ def _scripts():
 
 def record_soak_calls(calls):
     """``wrapped`` factories that append each kernel wrapper call of the
-    soak to ``calls[kernel]`` as (args, kwargs, group): a decode call's
+    soak to ``calls[kernel]`` as (args, kwargs, group): a ``blob_words``
+    call's group is its kernel's name, a decode call's
     group is its place among its batch's calls of that kernel, the
     batch's formats and its ``max_order``; an encode call's is the
     ``encode_frames_device`` run (one a file) it belongs to."""
@@ -2190,6 +2344,8 @@ def record_soak_calls(calls):
         def rec(*args, **kwargs):
             if key in ENCODE_KERNELS:
                 group = state["run"]
+            elif key in REPLICATED_KERNELS:
+                group = key  # once a decode_blob call, before its batches
             else:
                 place = state["placed"].get(key, 0)
                 state["placed"][key] = place + 1
@@ -2429,6 +2585,7 @@ def main() -> int:
 
     t = time.perf_counter()
     e2e, decoded = run_e2e(names, data, expected, config, smi)
+    e2e["profile"] = decode_profile_subprocess()
     enc_expected = json.loads((CORPUS / "encode_expected.json").read_text())
     emit({"phase": 3, "seconds": time.perf_counter() - t})
 
@@ -2527,4 +2684,6 @@ if __name__ == "__main__":
         sys.exit(traced_stages_worker(float(sys.argv[2])))
     if sys.argv[1:2] == ["--encode-profile"]:
         sys.exit(encode_profile_worker())
+    if sys.argv[1:2] == ["--decode-profile"]:
+        sys.exit(decode_profile_worker())
     sys.exit(main())

@@ -15,8 +15,11 @@ this tree's, so both trees' real wrappers (each builds its own tree's
 kernels) run on the same inputs: the main paths' calls, recorded on the
 card as ``chip_smoke.py`` records them.
 
-- ``pack_rows``, ``rice_lpc``, ``bulk_bits``: every call of one pooled
-  ``decode_streams`` of the smoke corpus, each file 96 times;
+- ``blob_words``, ``pack_rows``, ``rice_lpc``, ``bulk_bits``,
+  ``dec_epilogue``: every call of one pooled ``decode_streams`` of the
+  smoke corpus, each file 96 times; a tree without the ``blob_words``
+  kernel runs ``blob_words_plain``, the chain of torch ops its
+  ``blob_words`` runs;
 - ``rice_lpc_session``: every ``rice_lpc`` call of one
   ``AlacContext.read_all`` of ``chip_smoke.py``'s long stream (a pass
   per 64-frame window);
@@ -26,6 +29,10 @@ card as ``chip_smoke.py`` records them.
   (``chip_smoke.py`` phase 4's recording: 12 calls of up to 2048 lanes);
   ``rice_emit`` runs the ``rice_merge_fused`` calls' arguments through
   ``rice_symbols_fused`` (``chip_smoke.py`` phase 6);
+- ``enc_prologue``: every ``encode_prologue_fused`` call of that pooled
+  encode; a tree without the kernel runs ``encode_prologue_plain`` and
+  the transposing copy to the (S, 2F) layout, the chain its
+  ``encode_stages_pcm`` and ``predictor_errors_fused`` run;
 - ``zero_runs``, ``pair_merge``: every ``zero_run_lengths_fused`` and
   ``merge_pair_chunks_fused`` call of that pooled encode; a tree without
   the ``pair_merge`` kernel runs its plain ``merge_pair_chunks`` (then
@@ -103,7 +110,24 @@ def wrappers(name: str) -> dict:
         def pair_merge(c0, c1, c2, ws, quads=False, kernel="auto"):
             pairs = plain.merge_pair_chunks(c0, c1, c2, ws)
             return (*pairs, *plain.merge_quad_chunks(*pairs[:4])) if quads else pairs
-    return {"pack_rows": sub("ops.cuda.pack_rows").pack_rows,
+    pack_rows = sub("ops.cuda.pack_rows")
+    try:
+        prologue = sub("ops.cuda.enc_prologue").encode_prologue_fused
+    except ImportError:  # a tree whose encode_stages_pcm runs the chain
+        from alacnet_tpu_torch.ops.cuda.enc_prologue import encode_prologue_plain
+
+        def prologue(pcm, stereo, lw=0, sh=0, ub8=0, wide=False, kernel="auto"):
+            return encode_prologue_plain(pcm, stereo, lw, sh, ub8, wide).t().contiguous()
+    if hasattr(pack_rows, "blob_words_fused"):
+        blob = pack_rows.blob_words_fused
+    else:  # a tree whose blob_words runs the chain
+        from alacnet_tpu_torch.ops.cuda.pack_rows import blob_words_plain
+
+        def blob(x, tail_be, nq, kernel="auto"):
+            return blob_words_plain(x, tail_be, nq)
+    return {"blob_words": blob, "pack_rows": pack_rows.pack_rows,
+            "dec_epilogue": sub("ops.cuda.epilogue").decode_epilogue,
+            "enc_prologue": prologue,
             "rice_lpc": sub("ops.cuda.rice_lpc").fused_rice_lpc,
             "bulk_bits": sub("ops.cuda.bulk_bits").bulk_bits,
             "enc_pred": enc.predictor_errors_fused, "enc_rice": enc.rice_merge_fused,
@@ -126,6 +150,17 @@ def strip_runs(calls) -> dict:
 
     return {f"port_strip{strip}": [lambda a=a, kw=kw, s=strip: run(a, kw, s) for a, kw in calls]
             for strip in zero_runs.STRIPS}
+
+
+def lanes(kernel: str, args) -> int:
+    """The lanes (or frames, or words) of a recorded call."""
+    if kernel == "pack_rows":
+        return args[1].shape[0]
+    if kernel == "zero_runs":
+        return args[0].shape[-1]
+    if kernel == "dec_epilogue":
+        return args[12].shape[0]
+    return args[0].shape[0]
 
 
 def timed(run, reps: int = 5) -> tuple[float, float]:
@@ -251,15 +286,16 @@ def main() -> int:
     for i, root in enumerate(opt.more):
         trees[f"more{i + 1}"] = f"{OTHER}{i + 2}"
         load_package(root.resolve(), trees[f"more{i + 1}"])
-    enc_sets = {"enc_pred", "enc_rice", "rice_emit", "zero_runs", "pair_merge"}
-    wanted = set(opt.sets or ("pack_rows", "rice_lpc", "bulk_bits", "rice_lpc_session",
-                              *enc_sets, "encode_e2e"))
+    dec_sets = ("blob_words", "pack_rows", "rice_lpc", "bulk_bits", "dec_epilogue")
+    enc_sets = {"enc_prologue", "enc_pred", "enc_rice", "rice_emit", "zero_runs",
+                "pair_merge"}
+    wanted = set(opt.sets or (*dec_sets, "rice_lpc_session", *enc_sets, "encode_e2e"))
 
     names, data, _ = cs.load_corpus()
     sets = {}
-    if wanted & {"pack_rows", "rice_lpc", "bulk_bits"}:
+    if wanted & set(dec_sets):
         pooled, _ = cs.record_calls(names, data, alacnet_tpu_torch.DecodeConfig(device="cuda"))
-        sets.update({k: (k, pooled[k]) for k in ("pack_rows", "rice_lpc", "bulk_bits")})
+        sets.update({k: (k, pooled[k]) for k in dec_sets})
     if "rice_lpc_session" in wanted:
         music = alacnet_tpu_torch.decode_file(cs.CORPUS / "music.m4a", device="cuda")
         sets["rice_lpc_session"] = ("rice_lpc", cs.record_session_calls(cs.long_stream(music)[1]))
@@ -269,8 +305,8 @@ def main() -> int:
             [io.BytesIO(data[n]) for n in names], device="cuda")))
     if wanted & enc_sets:
         enc_calls, _, _ = cs.record_enc_calls(decoded, names)
-        sets.update({k: (k, enc_calls[k]) for k in ("enc_pred", "enc_rice", "zero_runs",
-                                                     "pair_merge")})
+        sets.update({k: (k, enc_calls[k]) for k in ("enc_prologue", "enc_pred", "enc_rice",
+                                                     "zero_runs", "pair_merge")})
         sets["rice_emit"] = ("rice_emit", enc_calls["enc_rice"])
     sets = {k: v for k, v in sets.items() if k in wanted}
 
@@ -300,9 +336,7 @@ def main() -> int:
                     rounds[name]["device_ms"].append(sum(per_call))
                     rounds[name].setdefault("device_per_call", []).append(per_call)
         res = {"set": set_name, "calls": len(calls),
-               "lanes": sorted({a[1].shape[0] if kernel == "pack_rows" else
-                                a[0].shape[-1] if kernel == "zero_runs" else a[0].shape[0]
-                                for a, _ in calls}),
+               "lanes": sorted({lanes(kernel, a) for a, _ in calls}),
                "exact": exact, "card": smi}
         for key in ("ms", "host_us", "device_ms"):
             med = {n: statistics.median(v[key]) for n, v in rounds.items() if v[key]}

@@ -1016,8 +1016,10 @@ def test_two_shard_mesh_on_one_card_matches_single_device(cuda):
 
 def test_mesh_launches_each_kernel_on_each_shard_stream(cuda, monkeypatch):
     """Under a two-shard mesh, pack_rows, rice_lpc and bulk_bits launch
-    on both shard streams (and on no other), and the encode kernels
-    (the pair merge among them) on both too."""
+    on both shard streams (and on no other), blob_words once for the
+    one distinct device, on its current stream, before the shards'
+    work; and the encode kernels (the prologue and the pair merge among
+    them) on both shard streams."""
     import alacnet_tpu_torch as at
     from alacnet_tpu_torch.parallel.mesh import make_mesh
 
@@ -1026,15 +1028,18 @@ def test_mesh_launches_each_kernel_on_each_shard_stream(cuda, monkeypatch):
     assert len(set(handles)) == 2
     seen = _launch_streams(monkeypatch)
     _, names, streams = _pooled_smoke(MESH_COPIES)
+    current = torch.cuda.current_stream().cuda_stream
     decoded = at.decode_streams(streams, mesh=mesh)
     for k in ("pack_rows", "rice_lpc", "bulk_bits"):
         assert all(seen[(k, h)] > 0 for h in handles), (k, seen)
-    assert {h for _, h in seen} == set(handles)
+    assert {h for k, h in seen if k != "blob_words"} == set(handles)
+    assert {(k, h): c for (k, h), c in seen.items() if k == "blob_words"} == {
+        ("blob_words", current): 1}
     seen.clear()
     music = decoded[names.index("music.m4a") * MESH_COPIES]
     at.encode_files([music.pcm] * 3, [io.BytesIO() for _ in range(3)],
                     music.sample_rate, 16, mesh=mesh)
-    for k in ("enc_pred", "enc_rice", "zero_runs", "pair_merge"):
+    for k in ("enc_prologue", "enc_pred", "enc_rice", "zero_runs", "pair_merge"):
         assert all(seen[(k, h)] > 0 for h in handles), (k, seen)
 
 
@@ -1734,4 +1739,206 @@ def test_pair_merge_refused_launch_raises_without_fallback(cuda, monkeypatch):
     sig, n, lp, rp = _enc_inputs(33, 255, 6, cuda)
     with pytest.raises(RuntimeError, match="alac_pair_merge: CUDA error 9"):
         encode_stages(sig, n, lp, rp, 255, max_order=6, pairs=True, quads=True)
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# Kernel 10, blob_words, and kernel 11, enc_prologue.  The case builders
+# serve tests/test_torch_pack_rows.py and test_torch_enc_prologue.py too.
+# ---------------------------------------------------------------------------
+
+
+def prologue_case(F, S, bits, seed, mono_share=0.4):
+    """(pcm (F, S, 2) int32, stereo (F,) bool) as the encoder uploads
+    them: ``bits``-wide samples, every third frame at full scale with
+    the channels opposite (|L - R| near 2**bits, the widest difference),
+    channel 1 zero on mono frames."""
+    rng = np.random.default_rng(seed)
+    lim = 1 << (bits - 1)
+    pcm = rng.integers(-lim, lim, (F, S, 2)).astype(np.int32)
+    pcm[::3, :, 0] = lim - 1
+    pcm[::3, :, 1] = -lim
+    pcm[1::7] = 0
+    stereo = rng.random(F) >= mono_share
+    pcm[~stereo, :, 1] = 0
+    return pcm, stereo
+
+
+#: (lw, sh, ub8) of the card's prologue cases: none, the default, large
+#: products, every shift past 16, a strip.
+PROLOGUE_PARAMS = ((0, 0, 0), (1, 1, 0), (255, 31, 0), (200, 17, 0), (3, 5, 8), (0, 0, 8))
+
+
+def check_prologue(pcm, stereo, lw, sh, ub8, wide, dev):
+    from alacnet_tpu_torch.ops.cuda import enc_prologue as ep
+
+    p, s = torch.from_numpy(pcm).to(dev), torch.from_numpy(stereo).to(dev)
+    got = ep.encode_prologue_fused(p, s, lw, sh, ub8, wide, kernel="cuda")
+    torch.cuda.synchronize()
+    want = ep.encode_prologue_plain(p, s, lw, sh, ub8, wide)
+    assert got.shape == (pcm.shape[1], 2 * pcm.shape[0]) and got.is_contiguous()
+    assert torch.equal(got.t(), want), (lw, sh, ub8, wide)
+    return got
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("F,S", [(1, 1), (3, 2), (4, 3), (31, 63), (32, 64), (33, 65),
+                                 (37, 4095), (912, 4096)])
+def test_enc_prologue_kernel_matches_plain(cuda, F, S, wide):
+    """Kernel against plain version on tile edges: F not a multiple of
+    32 (or of 4: the word-by-word stores), S not a multiple of 64 (or
+    odd: the word-by-word loads), every parameter set."""
+    pcm, stereo = prologue_case(F, S, 24 if wide else 16, F + S)
+    for lw, sh, ub8 in PROLOGUE_PARAMS:
+        check_prologue(pcm, stereo, lw, sh, ub8, wide, cuda)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_enc_prologue_every_shift(cuda, wide):
+    """Shifts 0-31, and counts past the type's width (sign fill), with
+    ``|cb| * lw`` past 2**31 on the wide lanes."""
+    pcm, stereo = prologue_case(40, 130, 24 if wide else 16, 5)
+    for sh in [*range(32), 32, 40, 63, 64, 200]:
+        for lw in (1, 255):
+            check_prologue(pcm, stereo, lw, sh, 0, wide, cuda)
+
+
+@pytest.mark.parametrize("mono_share", [0.0, 1.0])
+def test_enc_prologue_stereo_or_mono_only(cuda, mono_share):
+    pcm, stereo = prologue_case(64, 256, 16, 9, mono_share=mono_share)
+    for lw, sh, ub8 in PROLOGUE_PARAMS:
+        check_prologue(pcm, stereo, lw, sh, ub8, False, cuda)
+
+
+def test_enc_prologue_misaligned_pcm(cuda):
+    """A PCM tensor that starts off a 16-byte boundary: the word-by-word
+    loads."""
+    from alacnet_tpu_torch.ops.cuda import enc_prologue as ep
+
+    pcm, stereo = prologue_case(36, 128, 16, 3)
+    buf = torch.zeros(pcm.size + 1, dtype=torch.int32, device=cuda)
+    buf[1:] = torch.from_numpy(pcm.reshape(-1)).to(cuda)
+    p = buf[1:].view(pcm.shape)
+    assert p.data_ptr() % 16 != 0
+    s = torch.from_numpy(stereo).to(cuda)
+    got = ep.encode_prologue_fused(p, s, 1, 1, 0, False, kernel="cuda")
+    assert torch.equal(got.t(), ep.encode_prologue_plain(p, s, 1, 1, 0, False))
+
+
+def test_enc_prologue_feeds_the_predictor_without_a_copy(cuda, monkeypatch):
+    """``encode_stages_pcm`` launches the prologue once a call, and the
+    predictor's wrapper takes its output as it is: ``_sample_major``
+    makes no copy of the signal."""
+    from alacnet_tpu_torch.ops import encode as tenc
+    from alacnet_tpu_torch.ops.cuda import _lib, enc_stages
+
+    pcm, stereo = prologue_case(33, 255, 16, 4)
+    F, S = stereo.shape[0], pcm.shape[1]
+    sig, n, lp, rp = _enc_inputs(2 * F, S, 6, cuda)
+    ptrs = []
+    real = enc_stages._sample_major
+
+    def spy(name, x, B, S):
+        out = real(name, x, B, S)
+        if name == "sig":
+            ptrs.append((x.data_ptr(), out.data_ptr()))
+        return out
+
+    monkeypatch.setattr(enc_stages, "_sample_major", spy)
+    _lib.reset_launches()
+    got = tenc.encode_stages_pcm(torch.from_numpy(pcm).to(cuda),
+                                 torch.from_numpy(stereo).to(cuda), n, lp, rp, S,
+                                 max_order=6, lw=1, sh=1)
+    want = tenc.encode_stages_pcm(torch.from_numpy(pcm).to(cuda),
+                                  torch.from_numpy(stereo).to(cuda), n, lp, rp, S,
+                                  max_order=6, lw=1, sh=1, kernel="torch")
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["enc_prologue"] == 1
+    assert len(ptrs) == 1 and ptrs[0][0] == ptrs[0][1]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("max_w", [0, 256, 4096])
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 5, 6, 7, 8, 4097, 4098, 4099, 4100,
+                               65947392 // 64 + 3])
+def test_blob_words_kernel_matches_plain(cuda, n, max_w):
+    """Every ``n % 4`` (the tail word) and every ``m % 4`` (the quad
+    that holds word m reads word by word), the empty blob, blobs under
+    one word, and wide padding."""
+    from alacnet_tpu_torch.ops.cuda import pack_rows as pr
+
+    blob = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8)
+    w32, tail, nq = pr.host_le_words(blob, max_w)
+    x = torch.from_numpy(w32.view(np.int32).copy()).to(cuda)
+    got = pr.blob_words_fused(x, tail, nq, kernel="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, pr.blob_words_plain(x, tail, nq))
+    assert torch.equal(pr.blob_words(blob, cuda, max_w=max_w), got)
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_blob_words_misaligned_word_base(cuda, shift):
+    """Words that start off a 16-byte boundary: the word-by-word loads."""
+    from alacnet_tpu_torch.ops.cuda import pack_rows as pr
+
+    blob = np.random.default_rng(shift).integers(0, 256, 10003, dtype=np.uint8)
+    w32, tail, nq = pr.host_le_words(blob, 512)
+    buf = torch.zeros(w32.size + shift, dtype=torch.int32, device=cuda)
+    buf[shift:] = torch.from_numpy(w32.view(np.int32).copy()).to(cuda)
+    x = buf[shift:]
+    assert x.data_ptr() % 16 != 0
+    got = pr.blob_words_fused(x, tail, nq, kernel="cuda")
+    assert torch.equal(got, pr.blob_words_plain(x, tail, nq))
+
+
+def test_decode_blob_launches_blob_words_once(cuda):
+    """One ``blob_words`` launch a ``decode_blob`` call; the plain route
+    (``DecodeConfig(kernel="torch")``) launches none and decodes the
+    same PCM."""
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.ops.cuda import _lib
+
+    _, _, streams = _pooled_smoke(2)
+    _lib.reset_launches()
+    got = at.decode_streams(streams, device="cuda")
+    assert _lib.LAUNCHES["blob_words"] == 1
+    _, _, streams = _pooled_smoke(2)
+    _lib.reset_launches()
+    want = at.decode_streams(streams, config=at.DecodeConfig(device="cuda", kernel="torch"))
+    assert _lib.LAUNCHES["blob_words"] == 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.pcm, w.pcm)
+
+
+def test_blob_words_and_prologue_refused_launch_raise_without_fallback(cuda, monkeypatch):
+    """A refused launch of either kernel raises from its caller under
+    ``kernel="auto"``; the plain versions are never reached."""
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.ops import encode as tenc
+    from alacnet_tpu_torch.ops.cuda import _lib, enc_prologue, pack_rows
+
+    lib = _lib.get_lib()
+
+    class Refusing:
+        def __getattr__(self, name):
+            if name in ("alac_blob_words", "alac_enc_prologue"):
+                return lambda *args: 9  # cudaErrorInvalidConfiguration
+            return getattr(lib, name)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(_lib, "_lib", Refusing())
+    monkeypatch.setattr(pack_rows, "blob_words_plain", no_plain)
+    monkeypatch.setattr(enc_prologue, "encode_prologue_plain", no_plain)
+    _, _, streams = _pooled_smoke(1)
+    with pytest.raises(RuntimeError, match="alac_blob_words: CUDA error 9"):
+        at.decode_streams(streams, device="cuda")
+    pcm, stereo = prologue_case(8, 64, 16, 0)
+    _, n, lp, rp = _enc_inputs(16, 64, 6, cuda)
+    with pytest.raises(RuntimeError, match="alac_enc_prologue: CUDA error 9"):
+        tenc.encode_stages_pcm(torch.from_numpy(pcm).to(cuda),
+                               torch.from_numpy(stereo).to(cuda), n, lp, rp, 64,
+                               max_order=6, lw=1, sh=1)
     torch.cuda.synchronize()

@@ -84,3 +84,58 @@ def test_pack_rows_cuda_route_needs_cuda_tensors():
         tpr.pack_rows(tb, z, z, 256, kernel="cuda")
     with pytest.raises(ValueError, match="kernel must be"):
         tpr.pack_rows(tb, z, z, 256, kernel="fused")
+
+
+def _le_words(blob, max_w):
+    """``host_le_words`` of the blob, its words as an int32 tensor."""
+    w32, tail, nq = tpr.host_le_words(blob, max_w)
+    return torch.from_numpy(w32.view(np.int32).copy()), tail, nq
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 4097, 4098, 4099, 4100])
+@pytest.mark.parametrize("max_w", [0, 256, 4096])
+def test_blob_words_plain_matches_jax(n, max_w):
+    """Kernel 10's plain version (the device half of ``blob_words``)
+    against the JAX ``blob_words``: every ``n % 4``, the empty blob and
+    blobs under one word."""
+    blob = _blob(n, 7 + n)
+    want = np.asarray(jpr.blob_words(blob, max_w=max_w)).view(np.int32)
+    x, tail, nq = _le_words(blob, max_w)
+    got = tpr.blob_words_plain(x, tail, nq)
+    assert got.dtype == torch.int32 and got.shape == (nq, tpr.QL)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the CPU route of the wrapper is the plain version
+    np.testing.assert_array_equal(tpr.blob_words_fused(x, tail, nq).numpy(), want)
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_blob_words_misaligned_base_matches_jax(shift):
+    """A blob that starts off a word boundary of its buffer (an offset
+    slice): the host half copies it to whole words, and the device half
+    gives the JAX words; a word view that starts off a 16-byte boundary
+    gives them too."""
+    buf = _blob(9001 + shift, shift)
+    blob = buf[shift:]
+    want = np.asarray(jpr.blob_words(blob, max_w=256)).view(np.int32)
+    np.testing.assert_array_equal(tpr.blob_words(blob, "cpu", max_w=256).numpy(), want)
+    x, tail, nq = _le_words(blob, 256)
+    padded = torch.cat([torch.zeros(shift, dtype=torch.int32), x])[shift:]
+    assert padded.data_ptr() % 16 != 0
+    np.testing.assert_array_equal(tpr.blob_words_plain(padded, tail, nq).numpy(), want)
+
+
+def test_blob_words_routes_on_cpu():
+    """On CPU tensors the wrapper runs the plain version (``auto`` and
+    ``torch``), refuses ``cuda`` and an unknown route; ``blob_words``
+    passes its ``kernel`` on."""
+    x, tail, nq = _le_words(_blob(103, 3), 0)
+    want = tpr.blob_words_plain(x, tail, nq)
+    for kernel in ("auto", "torch"):
+        assert torch.equal(tpr.blob_words_fused(x, tail, nq, kernel=kernel), want)
+        assert torch.equal(tpr.blob_words(_blob(103, 3), "cpu", kernel=kernel), want)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpr.blob_words_fused(x, tail, nq, kernel="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        tpr.blob_words(_blob(103, 3), "cpu", kernel="cuda")
+    with pytest.raises(ValueError, match="kernel must be"):
+        tpr.blob_words_fused(x, tail, nq, kernel="fused")
