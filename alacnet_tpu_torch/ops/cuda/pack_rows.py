@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...utils.transfer import h2d
+from ...utils.transfer import h2d, pin
 from . import _lib
 
 #: Minor dimension of the (Nq, 128) blob layout (kept from the JAX
@@ -114,9 +114,28 @@ def blob_words(
     """Byte blob -> (Nq, 128) big-endian words (int32 patterns) on
     ``device``: one H2D copy of the little-endian view, then the
     byteswap and padding there (:func:`blob_words_fused`)."""
+    return blob_words_uploader(blob_u8, max_w, kernel)(device)
+
+
+def blob_words_uploader(blob_u8: np.ndarray, max_w: int = 0, kernel: str = "auto"):
+    """:func:`blob_words` for several devices (``Mesh.replicated``): a
+    function of the device whose calls share one host staging of the
+    blob, a single pinned copy that every card uploads from."""
     w32, tail_be, nq = host_le_words(blob_u8, max_w)
-    x = h2d(w32.view(np.int32), torch.device(device))
-    return blob_words_fused(x, tail_be, nq, kernel=kernel)
+    w32 = w32.view(np.int32)
+    staged: list = []
+
+    def make(device) -> torch.Tensor:
+        device = torch.device(device)
+        if device.type != "cuda":
+            x = h2d(w32, device)
+        else:
+            if not staged:
+                staged.append(pin(w32))
+            x = staged[0].to(device, non_blocking=True)
+        return blob_words_fused(x, tail_be, nq, kernel=kernel)
+
+    return make
 
 
 def _mask_tail(rows: torch.Tensor, nbytes: torch.Tensor) -> torch.Tensor:

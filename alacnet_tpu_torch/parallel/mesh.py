@@ -87,13 +87,15 @@ class Mesh:
             yield self.devices[i]
 
     def replicated(self, make) -> tuple:
-        """``make(device)`` once per distinct device, on that device's
-        current stream; one entry per shard.  Each copy is marked as in
-        use by the shards' streams, so its memory outlives their work."""
+        """``make(device)`` once per distinct device, with that device
+        current, on its current stream; one entry per shard.  Each copy
+        is marked as in use by the shards' streams, so its memory
+        outlives their work."""
         made: dict = {}
         for d in self.devices:
             if d not in made:
-                made[d] = make(d)
+                with torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext():
+                    made[d] = make(d)
         out = tuple(made[d] for d in self.devices)
         for t, s in zip(out, self.streams):
             if s is not None:
@@ -111,20 +113,24 @@ class Mesh:
         return batch // self.size
 
 
+def visible_cards() -> list:
+    """Every visible CUDA device, in index order; raises without one
+    (opens no context on any of them)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
+        raise RuntimeError(
+            "make_mesh() spans every visible CUDA device, and there is "
+            "none; pass devices=['cpu', ...] to shard over the CPU"
+        )
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def make_mesh(devices=None) -> Mesh:
     """A mesh over ``devices``, by default every visible CUDA device.
 
     Without a card the default raises: a mesh never moves to the CPU on
     its own (pass ``["cpu"] * k`` for that).
     """
-    if devices is None:
-        if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
-            raise RuntimeError(
-                "make_mesh() spans every visible CUDA device, and there is "
-                "none; pass devices=['cpu', ...] to shard over the CPU"
-            )
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return Mesh(devices)
+    return Mesh(visible_cards() if devices is None else devices)
 
 
 class Sharded(NamedTuple):

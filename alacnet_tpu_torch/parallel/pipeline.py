@@ -25,7 +25,9 @@ from ..codec.framemeta_vec import (
 )
 from ..config import DecodeConfig, resolve
 from ..ops.bitreader import WINDOW_PAD, pack_frames_to_words
-from ..ops.cuda.pack_rows import blob_words, host_row_params, pack_rows
+from ..ops.cuda.pack_rows import (
+    blob_words, blob_words_uploader, host_row_params, pack_rows,
+)
 from ..ops.frame_decode import FrameMetaArrays, decode_frames_packed
 from ..utils.observability import GLOBAL_STATS, trace_span
 from ..utils.transfer import d2h_async, h2d
@@ -369,9 +371,8 @@ def decode_blob(
     inv, max_w, spans = blob_spans(blob, offsets, sizes, params, batch_limit, config)
     bwords = None
     if max_w is not None and mesh is not None:
-        bwords = mesh.replicated(
-            lambda d: blob_words(np.asarray(blob), d, max_w=max_w, kernel=config.kernel)
-        )
+        # one host staging of the blob; each distinct card uploads from it
+        bwords = mesh.replicated(blob_words_uploader(np.asarray(blob), max_w, config.kernel))
     elif max_w is not None:
         bwords = blob_words(np.asarray(blob), config.torch_device, max_w=max_w,
                             kernel=config.kernel)

@@ -13,20 +13,26 @@ import numpy as np
 import torch
 
 
+def pin(arr: np.ndarray) -> torch.Tensor:
+    """A pinned host copy of ``arr``, the staging buffer of an
+    asynchronous upload; one buffer may feed uploads to several cards."""
+    arr = np.ascontiguousarray(arr)
+    host = torch.from_numpy(np.empty(0, arr.dtype)).new_empty(
+        arr.shape, pin_memory=True
+    )
+    host.numpy()[...] = arr
+    return host
+
+
 def h2d(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A device copy of a host int32 array; asynchronous on CUDA.
 
     The result never aliases ``arr`` (which may be read-only, or reused
     by the caller after the call).
     """
-    arr = np.ascontiguousarray(arr)
     if device.type != "cuda":
-        return torch.from_numpy(arr.copy())
-    host = torch.from_numpy(np.empty(0, arr.dtype)).new_empty(
-        arr.shape, pin_memory=True
-    )
-    host.numpy()[...] = arr
-    return host.to(device, non_blocking=True)
+        return torch.from_numpy(np.ascontiguousarray(arr).copy())
+    return pin(arr).to(device, non_blocking=True)
 
 
 def d2h_async(*tensors: torch.Tensor):

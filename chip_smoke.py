@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's decode and encode paths on one CUDA card.
+"""Smoke run of the PyTorch port's decode and encode paths on the CUDA cards.
 
     python3 chip_smoke.py
 
-It needs one CUDA device, the CUDA toolkit (``nvcc``) and this
+It needs one CUDA device (phase 9 also runs its legs over every card
+where two or more are visible), the CUDA toolkit (``nvcc``) and this
 repository's checkout; it imports nothing of JAX.  Phases, each fatal
 on failure, each printing its seconds:
 
@@ -130,35 +131,54 @@ on failure, each printing its seconds:
    kernel); each arm's rates, busy time and by-op list go on an
    ``epilogue_arms`` line;
 9. mesh — data parallelism over frames (``parallel/mesh.py``,
-   ``parallel/distributed.py``): the pooled smoke decode through
-   ``decode_streams(mesh=)`` over every visible card and over two shards
-   on the first card (``TWO_SHARDS``: two streams), each against
+   ``parallel/distributed.py``); a ``mesh_cards`` line gives the cards
+   it used.  The pooled smoke decode through ``decode_streams(mesh=)``
+   over every visible card (``make_mesh()``) and over two shards on the
+   first card (``TWO_SHARDS``: two streams), each against
    ``expected.json``, with every launch's stream recorded (``_lib.launch``
-   wrapped): under two shards each decode kernel must launch on both shard
-   streams and on no other, but ``blob_words`` once for the one distinct
-   device, on its current stream, before the shards;
-   ``encode_files(mesh=)`` of each smoke file's PCM over the two shards
-   against ``encode_expected.json`` (every encode kernel on both
-   streams) and ``encode_frames_device(mesh=)`` of a ragged slice of
-   music.m4a's PCM against the single device and the host encoder;
-   every call the two-shard decode and encode made to the ten kernel
-   wrappers, recorded with its stream, and the first on each shard
-   stream (``blob_words``' call replayed on each) — then more while the
-   kernel's plain total stays under
-   ``MESH_PLAIN_BUDGET_S`` — run again on that stream through the
-   kernel and the plain version, bit for bit (``mesh_kernel_check``
-   lines); the port's ``dryrun_multichip(2, TWO_SHARDS)``; the
-   distributed decode in worker subprocesses (this script with
-   ``--dist-worker``), world 1 on ``nccl`` and world 2 on ``gloo``, both
-   ranks on the first card, every worker under a timeout, their PCM in
-   rank order against music.m4a's x ``DIST_COPIES`` and the all-reduced
-   total and checksum against it; then ``decode_blob``'s rate to host PCM
-   over the bench's mixed pool without a mesh, over a one-card mesh and
-   over two shards, in turns (``MESH_RATE_RUNS`` each), printed beside the
-   card's name and power limit, with the quartiles of each arm's runs.
-   The ``kernels`` line's ``mesh_launches`` are the two-shard decode's
-   and encode's counts, ``mesh_max_abs_err`` and ``mesh_plain_calls``
-   (calls compared, per shard stream) their kernel checks';
+   wrapped): each decode kernel must launch on every shard stream and
+   on no other, but ``blob_words`` once a distinct device, on its
+   current stream, before the shards; ``encode_files(mesh=)`` of each
+   smoke file's PCM over the two shards against
+   ``encode_expected.json`` (every encode kernel on both streams) and
+   ``encode_frames_device(mesh=)`` of a ragged slice of music.m4a's PCM
+   against the single device and the host encoder; every call the
+   two-shard decode and encode made to the ten kernel wrappers,
+   recorded with its stream, and the first on each shard stream
+   (``blob_words``' call replayed on each) — then more while the
+   kernel's plain total stays under ``MESH_PLAIN_BUDGET_S`` — run again
+   on that stream through the kernel and the plain version, bit for bit
+   (``mesh_kernel_check`` lines); the port's ``dryrun_multichip(2,
+   TWO_SHARDS)``; the distributed decode in worker subprocesses (this
+   script with ``--dist-worker``), world 1 on ``nccl`` and world 2 on
+   ``gloo``, both ranks on the first card, every worker under a timeout,
+   their PCM in rank order against music.m4a's x ``DIST_COPIES`` and the
+   all-reduced total and checksum against it.  Where two or more cards
+   are visible, also: the encodes over every card as over the two
+   shards; each call of the decode and the encode over every card, the
+   first on each card's shard stream (``blob_words``' call of each card
+   on that card's stream), through the kernel and the plain version,
+   bit for bit; ``dryrun_multichip(cards)``; and an ``nccl`` run of one
+   rank a card, each rank taking its card through ``global_mesh()``'s
+   default under ``LOCAL_RANK``/``LOCAL_WORLD_SIZE`` (rank r must hold
+   ``cuda:r`` as its current device), held as the other runs.  Then
+   ``decode_blob``'s rates over the bench's mixed pool, to host PCM and
+   into a sink on the cards, without a mesh, over a one-card mesh, over
+   two shards and, with several cards, over every card, in turns
+   (``MESH_RATE_RUNS`` each, the quartiles of each arm's runs); with
+   several cards also over four times the pool, one card against every
+   card, and the blob's host staging once a card against once for every
+   card; the one-device path: no mesh against a one-card mesh on the
+   session API's 64-frame windows (``AlacContext.read_all`` over the
+   long stream) and on each bench kind's device stage, in turns; with
+   several cards, the pooled ``encode_files`` over every card against
+   one card, in turns.  Each rate line carries the cards' names and
+   power limits.  The ``kernels`` line's ``mesh_launches`` are the
+   two-shard decode's and encode's counts, ``mesh_max_abs_err`` and
+   ``mesh_plain_calls`` (calls compared, per shard stream) their kernel
+   checks'; ``mesh_cards_launches``, ``mesh_cards_max_abs_err`` and
+   ``mesh_cards_plain_calls`` the same over every card (null on one
+   card);
 10. encoder routes — phase 4's pooled ``encode_files(device="cuda")``
    run on each packing route (``ROUTES``: the default host pair pack,
    ``pack="scatter"``, ``pack="gather"``, ``quads=True``), first one
@@ -396,11 +416,12 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def nvidia_smi() -> str:
-    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    """The cards' names and power limits, as ``nvidia-smi`` gives them:
+    one line a card."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip()
 
 
 def load_corpus():
@@ -1699,27 +1720,57 @@ DIST_COPIES = 5
 #: Seconds a distributed worker may take (its rendezvous times out first).
 DIST_TIMEOUT_S = 240
 DIST_INIT_TIMEOUT_S = 120
-#: The distributed runs of phase 9: (backend, world size); NCCL refuses
-#: two ranks on one card, so the two-rank run uses gloo.
-DIST_RUNS = (("nccl", 1), ("gloo", 2))
+#: A worker's device argument that makes it take its cards through
+#: ``global_mesh()``'s default, under ``LOCAL_RANK``/``LOCAL_WORLD_SIZE``.
+RANK_CARDS = "rank-cards"
+#: The distributed runs of phase 9 on every machine: (backend, world
+#: size, device); NCCL refuses two ranks on one card, so the two-rank run
+#: uses gloo.  Where several cards are visible, one more run: NCCL, a
+#: rank a card, each rank taking its card by ``RANK_CARDS``.
+DIST_RUNS = (("nccl", 1, TWO_SHARDS[0]), ("gloo", 2, TWO_SHARDS[0]))
 #: Runs of each arm behind phase 9's decode_blob rates, in turns, over
 #: the bench's mixed pool (its 4096-sample frames, run_e2e_benchmark's
 #: 12,288 of them).
 MESH_RATE_RUNS = 9
 MESH_RATE_FRAMES = 3 * 4096
+#: Where several cards are visible, the rates once more over this many
+#: times the pool (49,152 frames: over four cards, a bench-sized share
+#: a card), one card against every card, in this many rounds.
+MESH_RATE_LARGE = 4
+MESH_RATE_LARGE_RUNS = 5
+#: Rounds of the blob's host staging arms (``blob_staging``).
+BLOB_STAGING_RUNS = 5
+#: Rounds of the pooled encode over every card against one card.
+MESH_ENCODE_RUNS = 5
+#: Rounds of the one-device-path arms (``one_device_path``), and the
+#: device-stage passes each round times.
+ONE_DEVICE_ROUNDS = 5
+ONE_DEVICE_PASSES = 10
+#: Where the session API calls decode_blob (imported at each call).
+DECODE_BLOB_SITE = {"decode_blob": ("alacnet_tpu_torch.parallel.pipeline", "decode_blob")}
 #: Where the kernel wrappers launch: phase 9 records each launch's stream.
 LAUNCH_SITE = {"launch": ("alacnet_tpu_torch.ops.cuda._lib", "launch")}
-#: Where the two-shard path calls each kernel wrapper: each shard cuts
-#: its own rows in parallel/mesh.py, and decodes and encodes as on one
+#: Where the mesh paths call each kernel wrapper: each shard cuts its
+#: own rows in parallel/mesh.py, and decodes and encodes as on one
 #: device.
 MESH_CALL_SITES = {
     **CALL_SITES, "pack_rows": ("alacnet_tpu_torch.parallel.mesh", "pack_rows"),
     **ENC_CALL_SITES,
 }
-#: Seconds of plain-version runs each kernel's phase-9 check may spend
+#: Seconds of plain-version runs each kernel's two-shard check may spend
 #: past the first call on each shard stream (the plain rice_lpc and
 #: predictor take ~10-13 s a call on the H100, so those two stop there).
+#: The check over every card compares the first call on each card's
+#: stream only.
 MESH_PLAIN_BUDGET_S = 8.0
+
+
+def sync_all() -> None:
+    """Wait for every stream of every visible card."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
 
 
 def stream_recorder(seen):
@@ -1752,23 +1803,25 @@ def shard_recorder(calls):
     return make
 
 
-def compare_shard_calls(calls, fns, streams, budget_s) -> dict:
-    """Phase 9's kernel checks: the calls the two-shard path made
+def compare_shard_calls(calls, fns, mesh, budget_s) -> dict:
+    """Phase 9's kernel checks: the calls a mesh path made
     (``shard_recorder``), each run again on the shard stream it was
     queued on (a ``REPLICATED_KERNELS`` call, queued once a device
-    before the shards, on every shard stream), through the kernel and
-    through the plain version, bit for bit: the first call on each shard
-    stream, then further calls while the kernel's plain total stays
-    under ``budget_s``.  Fails unless every kernel was compared on every
-    shard stream."""
+    before the shards, on every shard stream of its device), through the
+    kernel and through the plain version, bit for bit: the first call on
+    each shard stream, then further calls while the kernel's plain total
+    stays under ``budget_s``.  Fails unless every kernel was compared on
+    every shard stream."""
     import torch
 
+    streams = mesh.streams
     handles = [s.cuda_stream for s in streams]
-    torch.cuda.synchronize()
+    sync_all()
     results = {}
     for name, recorded in calls.items():
         if name in REPLICATED_KERNELS:
-            recorded = [(a, kw, s) for a, kw, _ in recorded for s in streams]
+            recorded = [(a, kw, s) for a, kw, _ in recorded
+                        for s, d in zip(streams, mesh.devices) if d == a[0].device]
         fn = fns[name]
         err, plain_ms, compared, shapes = 0, 0.0, [], []
         by_stream = [0] * len(streams)
@@ -1787,34 +1840,34 @@ def compare_shard_calls(calls, fns, streams, budget_s) -> dict:
             compared.append(idx)
             shapes.append(list((got if isinstance(got, tuple) else (got,))[0].shape))
         if err != 0:  # the tolerance: bit for bit
-            raise RuntimeError(f"{name} on a shard stream: kernel differs from plain, "
-                               f"max |err| {err}")
+            raise RuntimeError(f"{name} on a shard stream of {mesh}: kernel differs from "
+                               f"plain, max |err| {err}")
         if 0 in by_stream:
-            raise RuntimeError(f"{name}: no call compared on a shard stream: {by_stream}")
+            raise RuntimeError(f"{name}: no call compared on a shard stream of {mesh}: "
+                               f"{by_stream}")
         results[name] = {"calls": len(recorded), "compared_calls": compared,
                          "compared_by_stream": by_stream, "shapes": shapes,
                          "max_abs_err": err, "plain_ms": plain_ms}
-        emit({"mesh_kernel_check": name, **results[name]})
+        emit({"mesh_kernel_check": name, "mesh": repr(mesh), **results[name]})
     return results
 
 
-def mesh_decode(names, data, expected, mesh, calls) -> dict:
+def mesh_decode(names, data, expected, legs) -> dict:
     """Phase 9's decodes: the pooled smoke corpus through
-    ``decode_streams(mesh=)`` over every visible card and over the two
-    shards of ``mesh``, each against expected.json; under two shards,
-    every decode kernel must launch on both shard streams, and each
-    wrapper call is appended to ``calls`` (``shard_recorder``)."""
-    import torch
-
+    ``decode_streams(mesh=)`` over each leg's mesh (``legs``: (label,
+    mesh, calls)), each against expected.json, every launch's stream
+    recorded: every decode kernel must launch on each shard stream and
+    on no other, but ``blob_words`` once a distinct device, on its
+    current stream.  Where a leg has ``calls``, each wrapper call is
+    appended to it (``shard_recorder``)."""
     import alacnet_tpu_torch
     from alacnet_tpu_torch.ops.cuda import _lib
-    from alacnet_tpu_torch.parallel.mesh import make_mesh
 
     out = {}
-    for label, mesh in (("all_cards", make_mesh()), ("two_shards", mesh)):
+    for label, mesh, calls in legs:
         seen: dict = {}
-        sites = {} if label == "all_cards" else {k: MESH_CALL_SITES[k] for k in DECODE_KERNELS}
-        torch.cuda.synchronize()
+        sites = {} if calls is None else {k: MESH_CALL_SITES[k] for k in DECODE_KERNELS}
+        sync_all()
         _lib.reset_launches()
         with wrapped(LAUNCH_SITE, stream_recorder(seen)), \
                 wrapped(sites, shard_recorder(calls)):
@@ -1844,14 +1897,12 @@ def mesh_decode(names, data, expected, mesh, calls) -> dict:
 
 
 def mesh_encode(names, decoded, enc_expected, mesh, calls) -> dict:
-    """Phase 9's encodes over the two shards of ``mesh``:
+    """Phase 9's encodes over the shards of ``mesh``:
     ``encode_files(mesh=)`` of each smoke file's PCM against
     encode_expected.json, each encode wrapper call appended to ``calls``
     (``shard_recorder``), and ``encode_frames_device(mesh=)`` of a ragged
     slice (a partial frame, an odd count) against the single device and
     the host encoder."""
-    import torch
-
     import alacnet_tpu_torch
     from alacnet_tpu_torch.codec.encoder_device import encode_frames_device
     from alacnet_tpu_torch.ops.cuda import _lib
@@ -1860,7 +1911,7 @@ def mesh_encode(names, decoded, enc_expected, mesh, calls) -> dict:
     files = [decoded[n] for n in names]
     outs = [io.BytesIO() for _ in files]
     sites = {k: MESH_CALL_SITES[k] for k in ENCODE_KERNELS}
-    torch.cuda.synchronize()
+    sync_all()
     _lib.reset_launches()
     with wrapped(LAUNCH_SITE, stream_recorder(seen)), wrapped(sites, shard_recorder(calls)):
         alacnet_tpu_torch.encode_files(
@@ -1871,11 +1922,13 @@ def mesh_encode(names, decoded, enc_expected, mesh, calls) -> dict:
     for name, o in zip(names, outs):
         want = enc_expected[f"{name}|default"]
         if hashlib.sha256(o.getvalue()).hexdigest() != want["sha256"]:
-            raise RuntimeError(f"encode_files(mesh=): {name} differs from encode_expected.json")
+            raise RuntimeError(f"encode_files({mesh}): {name} differs from "
+                               "encode_expected.json")
     handles = [s.cuda_stream for s in mesh.streams]
     by_stream = {k: [seen.get((k, h), 0) for h in handles] for k in ENCODE_KERNELS}
     if any(0 in c for c in by_stream.values()):
-        raise RuntimeError(f"encode_files(mesh=): an encode kernel idle on a shard: {by_stream}")
+        raise RuntimeError(f"encode_files({mesh}): an encode kernel idle on a shard: "
+                           f"{by_stream}")
 
     music = decoded["music.m4a"]
     S = 4096
@@ -1886,18 +1939,94 @@ def mesh_encode(names, decoded, enc_expected, mesh, calls) -> dict:
     meshed = encode_frames_device(frames, params, mesh=mesh)
     host = alacnet_tpu_torch.AlacEncoder(params)
     if meshed != single or single != [host.encode_frame(f) for f in frames]:
-        raise RuntimeError("encode_frames_device(mesh=) differs from the single device "
+        raise RuntimeError(f"encode_frames_device({mesh}) differs from the single device "
                            "or the host encoder on the ragged slice")
-    return {"files": len(files), "launches": launches, "launches_by_stream": by_stream,
-            "ragged_frames": len(frames)}
+    return {"mesh": repr(mesh), "files": len(files), "launches": launches,
+            "launches_by_stream": by_stream, "ragged_frames": len(frames)}
 
 
-def mesh_rates(card: str) -> dict:
-    """``decode_blob`` to host PCM over the bench's mixed pool (12,288
-    frames, a fresh order each run), without a mesh, over a one-card
-    mesh and over two shards on one card, in turns (the arms' order
-    rotating every round); every run's PCM held against its source.
-    Host clock around each call; medians."""
+def sink_counter():
+    """A ``decode_blob`` sink that sums each batch's sample counts on the
+    cards, one running sum a shard (on its stream), and a function that
+    waits for every card and returns the total."""
+    import torch
+
+    from alacnet_tpu_torch.parallel.mesh import Sharded
+
+    sums: dict = {}
+
+    def add(key, n):
+        if key not in sums:
+            sums[key] = torch.zeros((), dtype=torch.int64, device=n.device)
+        sums[key].add_(n.sum(dtype=torch.int64))
+
+    def sink(out, n, orig_b):
+        if not isinstance(n, Sharded):
+            add(None, n[:orig_b])
+            return
+        for i, (part, s) in enumerate(zip(n.parts, n.streams)):  # pad lanes count 0
+            with torch.cuda.stream(s):
+                add(i, part)
+
+    def total() -> int:
+        sync_all()
+        return sum(int(v) for v in sums.values())
+
+    return sink, total
+
+
+def quartiles(runs) -> list:
+    import statistics
+
+    return statistics.quantiles(runs, n=4)[::2]
+
+
+def blob_staging(blob, devices) -> dict:
+    """The blob's host staging for a mesh over distinct ``devices``, in
+    turns: once a card (its little-endian words pinned afresh and
+    uploaded for each card in turn) against once for every card (one
+    pinned copy that each card uploads from, as ``decode_blob`` stages
+    it: ``pack_rows.blob_words_uploader``).  Host clock,
+    every card synchronised; medians."""
+    import statistics
+
+    from alacnet_tpu_torch.ops.cuda.pack_rows import host_le_words
+    from alacnet_tpu_torch.utils.transfer import h2d, pin
+
+    w32 = host_le_words(blob)[0].view(np.int32)
+
+    def once():
+        staged = pin(w32)
+        return [staged.to(d, non_blocking=True) for d in devices]
+
+    arms = {"per_card": lambda: [h2d(w32, d) for d in devices], "once": once}
+    runs = {k: [] for k in arms}
+    order = list(arms.items())
+    for r in range(BLOB_STAGING_RUNS + 1):  # the first round warms up
+        for label, fn in order[r % 2:] + order[: r % 2]:
+            sync_all()
+            t0 = time.perf_counter()
+            copies = fn()
+            sync_all()
+            if r:
+                runs[label].append(time.perf_counter() - t0)
+            del copies
+    return {"bytes": int(w32.nbytes), "cards": len(devices),
+            **{f"{k}_s": statistics.median(v) for k, v in runs.items()},
+            "runs_s": runs}
+
+
+def mesh_rates(card: str, cards: int) -> dict:
+    """``decode_blob`` over the bench's mixed pool (12,288 frames, a fresh
+    order each run) to host PCM and into a sink on the cards
+    (``sink_counter``), in turns (the arms' order rotating every round;
+    each arm's host run, then its sink run on the same blob): without a
+    mesh, over a one-card mesh, over two shards on one card and, where
+    several cards are visible, over every card; there also over
+    ``MESH_RATE_LARGE`` times the pool, one card against every card,
+    with the blob's host staging measured (``blob_staging``).  Every
+    run's PCM held against its source, every sink's count against the
+    pool's.  Host clock around each call; medians and quartiles."""
     import statistics
 
     import torch
@@ -1907,41 +2036,235 @@ def mesh_rates(card: str) -> dict:
     from alacnet_tpu_torch.parallel.mesh import make_mesh
     from alacnet_tpu_torch.parallel.pipeline import decode_blob
 
-    S, total_frames = 4096, MESH_RATE_FRAMES
+    S = 4096
     pool, frames, params = bench_lib._mixed_pool_frames(S, 16)
     table, lengths = bench_lib._source_table(frames, S)
     rng = np.random.default_rng(7)
     config = DecodeConfig(device=DEVICE)
-    arms = {"no_mesh": None, "one_card": make_mesh(TWO_SHARDS[:1]),
-            "two_shards": make_mesh(TWO_SHARDS)}
+    one = make_mesh(TWO_SHARDS[:1])
+    arms = {"no_mesh": None, "one_card": one, "two_shards": make_mesh(TWO_SHARDS)}
+    sizes = [(MESH_RATE_FRAMES, MESH_RATE_RUNS, arms)]
+    if cards >= 2:
+        every = make_mesh()
+        arms["all_cards"] = every
+        sizes.append((MESH_RATE_LARGE * MESH_RATE_FRAMES, MESH_RATE_LARGE_RUNS,
+                      {"one_card": one, "all_cards": every}))
+    rec = {"cards": cards, "card": card, "sizes": []}
+    for total_frames, runs, size_arms in sizes:
+        walls = {k: ([], []) for k in size_arms}
+        order = list(size_arms.items())
+        for r in range(runs + 1):  # the first round warms up
+            k = r % len(order)
+            for label, mesh in order[k:] + order[:k]:  # each arm first in turn
+                src = rng.permutation(
+                    np.repeat(np.arange(len(pool)), -(-total_frames // len(pool)))[:total_frames]
+                )
+                blob, offsets, szs = bench_lib._blob([pool[i] for i in src])
+                samples = int(lengths[src].sum())
+                sync_all()
+                t0 = time.perf_counter()
+                out, n, status = decode_blob(blob, offsets, szs, params, S, config=config,
+                                             mesh=mesh)
+                wall = time.perf_counter() - t0
+                if status.any() or not bench_lib._gate_host(out, n, src, table, lengths):
+                    raise RuntimeError(f"decode_blob ({label}, {total_frames} frames): PCM "
+                                       "differs from the source")
+                del out, n
+                sink, total = sink_counter()
+                sync_all()
+                t0 = time.perf_counter()
+                decode_blob(blob, offsets, szs, params, S, config=config, mesh=mesh, sink=sink)
+                got = total()
+                sink_wall = time.perf_counter() - t0
+                if got != samples:
+                    raise RuntimeError(f"decode_blob ({label}, {total_frames} frames) into a "
+                                       f"sink: {got} samples, expected {samples}")
+                if r:
+                    walls[label][0].append(wall)
+                    walls[label][1].append(sink_wall)
+        rates = {}
+        for label, (w, sw) in walls.items():
+            pcm_runs = [samples / x / 1e6 for x in w]
+            sink_runs = [samples / x / 1e6 for x in sw]
+            rates[label] = {
+                "msamples_per_s": samples / statistics.median(w) / 1e6,
+                "quartiles_msps": quartiles(pcm_runs), "runs_msps": pcm_runs,
+                "sink_msamples_per_s": samples / statistics.median(sw) / 1e6,
+                "sink_quartiles_msps": quartiles(sink_runs), "sink_runs_msps": sink_runs,
+                "wall_s": statistics.median(w),
+            }
+        size = {"frames": total_frames, "samples": samples, "coded_bytes": int(blob.nbytes),
+                "runs": runs, "rates": rates}
+        if total_frames > MESH_RATE_FRAMES:
+            size["blob_staging"] = blob_staging(blob, list(dict.fromkeys(every.devices)))
+            size["blob_staging"]["all_cards_wall_s"] = rates["all_cards"]["wall_s"]
+        rec["sizes"].append(size)
+        torch.cuda.empty_cache()
+    emit({"mesh_rates": rec})
+    return rec
+
+
+def mesh_encode_rates(decoded, names, enc_expected, card: str) -> dict:
+    """The pooled ``encode_files`` (each smoke file's PCM ``COPIES``
+    times, as phase 4) on one card against over every card
+    (``mesh=make_mesh()``), in turns, ``MESH_ENCODE_RUNS`` timed rounds
+    after a warm-up round; every run's outputs against
+    encode_expected.json.  Host clock; medians and quartiles."""
+    import statistics
+
+    from alacnet_tpu_torch.codec.encoder import EncoderConfig
+    from alacnet_tpu_torch.parallel.mesh import make_mesh
+
+    arms = {"one_card": {}, "all_cards": {"mesh": make_mesh()}}
     walls = {k: [] for k in arms}
-    samples = None
     order = list(arms.items())
-    for r in range(MESH_RATE_RUNS + 1):  # the first round warms up
-        for label, mesh in order[r % 3:] + order[: r % 3]:  # each arm first in turn
-            src = rng.permutation(
-                np.repeat(np.arange(len(pool)), -(-total_frames // len(pool)))[:total_frames]
-            )
-            blob, offsets, sizes = bench_lib._blob([pool[i] for i in src])
-            torch.cuda.synchronize()
+    samples = COPIES * sum(decoded[n].pcm.shape[0] for n in names)
+    for r in range(MESH_ENCODE_RUNS + 1):  # the first round warms up
+        for label, route in order[r % 2:] + order[: r % 2]:
+            sync_all()
             t0 = time.perf_counter()
-            out, n, status = decode_blob(blob, offsets, sizes, params, S, config=config, mesh=mesh)
+            datas = encode_pooled(decoded, names, EncoderConfig(), **route)
+            sync_all()
             wall = time.perf_counter() - t0
-            if status.any() or not bench_lib._gate_host(out, n, src, table, lengths):
-                raise RuntimeError(f"decode_blob ({label}): PCM differs from the source")
-            samples = int(n.sum())
-            del out
+            check_hashes(datas, names, "default", enc_expected, f"encode over {label}: ")
+            del datas
             if r:
                 walls[label].append(wall)
     rates = {}
     for label, w in walls.items():
         runs = [samples / x / 1e6 for x in w]
         rates[label] = {"msamples_per_s": samples / statistics.median(w) / 1e6,
-                        "quartiles_msps": statistics.quantiles(runs, n=4)[::2],
-                        "runs_msps": runs}
-    rec = {"frames": total_frames, "samples": samples, "runs": MESH_RATE_RUNS,
-           "rates": rates, "card": card}
-    emit({"mesh_rates": rec})
+                        "quartiles_msps": quartiles(runs), "runs_msps": runs}
+    rec = {"samples": samples, "runs": MESH_ENCODE_RUNS, "rates": rates, "card": card}
+    emit({"mesh_encode_rates": rec})
+    return rec
+
+
+def one_device_path(decoded, card: str) -> dict:
+    """ROADMAP queue 1's one-device path: no mesh against a one-card mesh
+    (``make_mesh(["cuda:0"])``), in turns, the order alternating every
+    round.  (a) The session API: ``AlacContext.read_all`` over the long
+    stream (its 64-frame windows, ``decode_blob`` a window at a time,
+    readahead on), the mesh arm through ``decode_blob``'s ``mesh=`` (its
+    call site wrapped); every read against the source PCM.  (b) Each
+    bench kind's device stage: ``run_benchmark``'s corpus (4,096 frames
+    cycling 32 distinct ones) planned and staged once, then
+    ``ONE_DEVICE_PASSES`` passes of ``launch_frame_batch`` over every
+    span, the blob words rotating over ``bench_lib._copies`` copies;
+    host clock around synchronised passes; each arm's first pass held
+    against the source PCM.  Medians and quartiles of the rounds."""
+    import statistics
+
+    import torch
+
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch import bench_lib
+    from alacnet_tpu_torch.config import DecodeConfig
+    from alacnet_tpu_torch.ops.cuda.pack_rows import blob_words
+    from alacnet_tpu_torch.parallel.mesh import make_mesh
+    from alacnet_tpu_torch.parallel.pipeline import launch_frame_batch
+
+    one = make_mesh(TWO_SHARDS[:1])
+    rec = {"card": card, "rounds": ONE_DEVICE_ROUNDS}
+
+    def summary(samples, times) -> dict:
+        out = {}
+        for label, t in times.items():
+            runs = [samples / x / 1e6 for x in t]
+            out[label] = {"msamples_per_s": samples / statistics.median(t) / 1e6,
+                          "quartiles_msps": quartiles(runs), "runs_msps": runs}
+        return out
+
+    def in_turns(arms, run) -> dict:
+        times = {k: [] for k in arms}
+        order = list(arms.items())
+        for r in range(ONE_DEVICE_ROUNDS + 1):  # the first round warms up
+            for label, mesh in order[r % 2:] + order[: r % 2]:
+                t = run(label, mesh)
+                if r:
+                    times[label].append(t)
+        return times
+
+    arms = {"no_mesh": None, "one_card": one}
+    music = decoded["music.m4a"]
+    pcm, data = long_stream(music)
+
+    meshed = [0]
+
+    def with_mesh(key, orig):
+        def run(*args, **kwargs):
+            meshed[0] += 1
+            return orig(*args, **{**kwargs, "mesh": one})
+        return run
+
+    window = []
+
+    def session(label, mesh):
+        sites = {} if mesh is None else DECODE_BLOB_SITE
+        before = meshed[0]
+        sync_all()
+        with wrapped(sites, with_mesh):
+            t0 = time.perf_counter()
+            with at.AlacContext(io.BytesIO(data), device=DEVICE) as ctx:
+                got = ctx.read_all()
+                window.append(ctx._window)
+            t = time.perf_counter() - t0
+        if not np.array_equal(got, pcm):
+            raise RuntimeError(f"AlacContext ({label}) on the long stream differs")
+        if (mesh is not None) != (meshed[0] > before):
+            raise RuntimeError(f"AlacContext ({label}): {meshed[0] - before} window decodes "
+                               "took the mesh")
+        return t
+
+    times = in_turns(arms, session)
+    rec["session"] = {"frames": -(-pcm.shape[0] // 4096), "window": window[0],
+                      "samples": int(pcm.shape[0]), "rates": summary(pcm.shape[0], times)}
+
+    config = DecodeConfig(device=DEVICE)
+    dev = config.torch_device
+    S = 4096
+    kinds = {}
+    for kind in bench_lib.CORPUS_KINDS:
+        distinct, frames, params = bench_lib._corpus(num_distinct=32, frame_samples=S,
+                                                     kind=kind)
+        table, lengths = bench_lib._source_table(frames, S)
+        src = np.arange(4096) % len(distinct)
+        staged = bench_lib._stage(*bench_lib._blob([distinct[i] for i in src]), params,
+                                  config)
+        first = blob_words(staged.blob, dev, max_w=staged.max_w, kernel=config.kernel)
+        copies = [first] + [first.clone() for _ in range(
+            bench_lib._copies(first.numel() * first.element_size()) - 1)]
+        samples = 0
+
+        def stage(label, mesh):
+            nonlocal samples
+            sync_all()
+            t0 = time.perf_counter()
+            for p in range(ONE_DEVICE_PASSES):
+                bw = copies[p % len(copies)]
+                outs = [launch_frame_batch(b, S, config, bw if mesh is None else (bw,),
+                                           mesh=mesh) for b in staged.batches]
+                if label not in checked:  # in the warm-up round, which is not kept
+                    sync_all()
+                    if mesh is not None:
+                        outs = [(o.parts[0], n.parts[0]) for o, n in outs]
+                    ok, samples = bench_lib._gate_device(outs, staged, src, table, lengths,
+                                                         dev)
+                    if not ok:
+                        raise RuntimeError(f"{kind} device stage ({label}): PCM differs "
+                                           "from the source")
+                    checked.add(label)
+            sync_all()
+            return (time.perf_counter() - t0) / ONE_DEVICE_PASSES
+
+        checked: set = set()
+        times = in_turns(arms, stage)
+        kinds[kind] = {"spans": len(staged.batches), "samples": samples,
+                       "rates": summary(samples, times)}
+        del copies, first, staged
+        torch.cuda.empty_cache()
+    rec["kinds"] = kinds
+    emit({"one_device_path": rec})
     return rec
 
 
@@ -1949,9 +2272,12 @@ def dist_worker(init: str, world: int, rank: int, backend: str, device: str,
                 out_dir: str) -> int:
     """One rank of phase 9's distributed decode (``--dist-worker``):
     music.m4a's frames x DIST_COPIES split by global frame index, this
-    rank's slice decoded on ``device`` through ``decode_frames_global``;
-    writes its PCM and prints the global scalars."""
+    rank's slice decoded on ``device`` (``RANK_CARDS``: the rank's own
+    cards, ``global_mesh()``'s default) through
+    ``decode_frames_global``; writes its PCM and prints the global
+    scalars, its devices and its current device."""
     sys.path.insert(0, str(ROOT))
+    import torch
     import torch.distributed
 
     import alacnet_tpu_torch.parallel.distributed as dist
@@ -1962,7 +2288,7 @@ def dist_worker(init: str, world: int, rank: int, backend: str, device: str,
     dist.initialize(init, world, rank, initialization_timeout=DIST_INIT_TIMEOUT_S,
                     backend=backend)
     try:
-        mesh = dist.global_mesh([device])
+        mesh = dist.global_mesh() if device == RANK_CARDS else dist.global_mesh([device])
         info, blob = _collect(io.BytesIO((CORPUS / "music.m4a").read_bytes()))
         offs = info.tables.frame_file_offsets()
         sizes = info.tables.frame_byte_sizes
@@ -1978,7 +2304,9 @@ def dist_worker(init: str, world: int, rank: int, backend: str, device: str,
         valid = np.arange(S)[None, :] < n[:k, None]
         np.save(pathlib.Path(out_dir) / f"rank{rank}.npy", pcm[:k].reshape(-1, 2)[valid.reshape(-1)])
         print(json.dumps({"rank": rank, "world": world, "backend": backend, "frames": k,
-                          "total": total, "checksum": checksum}), flush=True)
+                          "total": total, "checksum": checksum,
+                          "devices": [str(d) for d in mesh.local.devices],
+                          "current_device": torch.cuda.current_device()}), flush=True)
     finally:
         torch.distributed.destroy_process_group()
     return 0
@@ -1992,50 +2320,64 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_distributed(decoded) -> list:
-    """Phase 9's distributed decodes, every run's workers started at
-    once, each with a timeout: the ranks' PCM, in rank order, must equal
-    music.m4a's PCM x DIST_COPIES, and every rank must report its
-    total and checksum."""
+def run_distributed(decoded, runs) -> list:
+    """Phase 9's distributed decodes (``runs``: (backend, world size,
+    device)), every run's workers started at once, each with a timeout:
+    the ranks' PCM, in rank order, must equal music.m4a's PCM x
+    DIST_COPIES, and every rank must report the all-reduced total and
+    checksum; a ``RANK_CARDS`` run's rank r must hold ``cuda:r`` alone,
+    under NCCL as its current device."""
+    import os
+
     from alacnet_tpu_torch.parallel.mesh import wrap_int32
 
     want = np.concatenate([decoded["music.m4a"].pcm] * DIST_COPIES)
     want_ck = wrap_int32(int(want.astype(np.int64).sum()))
+    base = {k: v for k, v in os.environ.items() if k not in ("LOCAL_RANK", "LOCAL_WORLD_SIZE")}
     records = []
     with tempfile.TemporaryDirectory() as tmp:
-        runs = []
+        started = []
         try:
-            for backend, world in DIST_RUNS:
-                d = pathlib.Path(tmp) / f"{backend}{world}"
+            for backend, world, device in runs:
+                d = pathlib.Path(tmp) / f"{backend}{world}{device}"
                 d.mkdir()
                 init = f"127.0.0.1:{free_port()}"
                 procs = [subprocess.Popen(
                     [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-worker", init,
-                     str(world), str(rank), backend, TWO_SHARDS[0], str(d)],
+                     str(world), str(rank), backend, device, str(d)],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                    env=base if device != RANK_CARDS else {
+                        **base, "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world)},
                 ) for rank in range(world)]
-                runs.append((backend, world, d, procs))
+                started.append((backend, world, device, d, procs))
             deadline = time.monotonic() + DIST_TIMEOUT_S
-            for backend, world, d, procs in runs:
+            for backend, world, device, d, procs in started:
+                what = f"distributed {backend} x{world} ({device})"
                 for rank, p in enumerate(procs):
                     try:
                         text = p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
                     except subprocess.TimeoutExpired:
-                        raise RuntimeError(f"distributed {backend} x{world}: rank {rank} timed out")
+                        raise RuntimeError(f"{what}: rank {rank} timed out")
                     if p.returncode != 0:
-                        raise RuntimeError(f"distributed {backend} x{world}: rank {rank} "
-                                           f"exited {p.returncode}:\n{text[-4000:]}")
+                        raise RuntimeError(f"{what}: rank {rank} exited {p.returncode}:\n"
+                                           f"{text[-4000:]}")
                     rec = json.loads(text.strip().splitlines()[-1])
                     if rec["total"] != want.shape[0] or rec["checksum"] != want_ck:
-                        raise RuntimeError(f"distributed {backend} x{world}: rank {rank} "
-                                           f"scalars {rec}, expected {want.shape[0]}, {want_ck}")
-                    records.append(rec)
+                        raise RuntimeError(f"{what}: rank {rank} scalars {rec}, expected "
+                                           f"{want.shape[0]}, {want_ck}")
+                    if device == RANK_CARDS and (
+                            rec["devices"] != [f"cuda:{rank}"]
+                            or backend == "nccl" and rec["current_device"] != rank):
+                        raise RuntimeError(f"{what}: rank {rank} took {rec['devices']} "
+                                           f"(current {rec['current_device']}), expected "
+                                           f"cuda:{rank}")
+                    records.append({**rec, "device": device})
                 got = np.concatenate([np.load(d / f"rank{r}.npy") for r in range(world)])
                 if not np.array_equal(got, want):
-                    raise RuntimeError(f"distributed {backend} x{world}: PCM differs")
-                print(f"distributed {backend} x{world}: OK", flush=True)
+                    raise RuntimeError(f"{what}: PCM differs")
+                print(f"{what}: OK", flush=True)
         finally:
-            for _, _, _, procs in runs:
+            for *_, procs in started:
                 for p in procs:
                     if p.poll() is None:
                         p.kill()
@@ -2044,27 +2386,47 @@ def run_distributed(decoded) -> list:
 
 
 def run_mesh_phase(names, data, decoded, expected, enc_expected, card: str) -> dict:
-    """Phase 9: data parallelism over frames."""
+    """Phase 9: data parallelism over frames; where several cards are
+    visible, over every card too."""
     import torch
 
     from alacnet_tpu_torch.parallel.mesh import dryrun_multichip, make_mesh
 
-    mesh, calls = make_mesh(TWO_SHARDS), {}
-    decode = mesh_decode(names, data, expected, mesh, calls)
-    encode = mesh_encode(names, decoded, enc_expected, mesh, calls)
+    cards = torch.cuda.device_count()
+    emit({"mesh_cards": cards, "card": card})
+    two, calls = make_mesh(TWO_SHARDS), {}
+    every, every_calls = make_mesh(), ({} if cards >= 2 else None)
+    decode = mesh_decode(names, data, expected,
+                         [("all_cards", every, every_calls), ("two_shards", two, calls)])
+    encode = mesh_encode(names, decoded, enc_expected, two, calls)
     fns = {**decode_fns(), **enc_fns()}
-    shard_checks = compare_shard_calls(
-        {k: calls.get(k, []) for k in DECODE_KERNELS + ENCODE_KERNELS}, fns, mesh.streams,
-        MESH_PLAIN_BUDGET_S)
+    kernels = DECODE_KERNELS + ENCODE_KERNELS
+    shard_checks = compare_shard_calls({k: calls.get(k, []) for k in kernels}, fns, two,
+                                       MESH_PLAIN_BUDGET_S)
     del calls
+    rec = {"cards": cards, "decode": decode, "encode": encode}
+    cards_checks = None
+    if cards >= 2:
+        rec["encode_all_cards"] = mesh_encode(names, decoded, enc_expected, every,
+                                              every_calls)
+        cards_checks = compare_shard_calls({k: every_calls.get(k, []) for k in kernels},
+                                           fns, every, 0.0)
+        del every_calls
+        torch.cuda.empty_cache()
+        rec["dryrun_all_cards"] = dryrun_multichip(cards)
+        print(f"dryrun_multichip({cards}): OK", flush=True)
     torch.cuda.empty_cache()
-    dryrun = dryrun_multichip(2, TWO_SHARDS)
-    distributed = run_distributed(decoded)
-    rates = mesh_rates(card)
-    rec = {"decode": decode, "encode": encode, "dryrun": dryrun,
-           "distributed": distributed, "card": card}
+    rec["dryrun"] = dryrun_multichip(2, TWO_SHARDS)
+    runs = DIST_RUNS + ((("nccl", cards, RANK_CARDS),) if cards >= 2 else ())
+    rec["distributed"] = run_distributed(decoded, runs)
+    rec["card"] = card
     emit({"mesh": rec})
-    return {**rec, "rates": rates, "shard_checks": shard_checks}
+    rates = mesh_rates(card, cards)
+    one_device = one_device_path(decoded, card)
+    encode_rates = (mesh_encode_rates(decoded, names, enc_expected, card)
+                    if cards >= 2 else None)
+    return {**rec, "rates": rates, "one_device": one_device, "encode_rates": encode_rates,
+            "shard_checks": shard_checks, "cards_checks": cards_checks}
 
 
 #: Phase 10's encoder routes, each run through the pooled encode_files.
@@ -2637,6 +2999,9 @@ def main() -> int:
     emit({"phase": 11, "seconds": time.perf_counter() - t, **p11["times"]})
     mesh_launches = {**mesh["decode"]["two_shards"]["launches"], **mesh["encode"]["launches"]}
     shard_checks = mesh["shard_checks"]
+    cards_checks = mesh["cards_checks"] or {}
+    cards_launches = ({**mesh["decode"]["all_cards"]["launches"],
+                       **mesh["encode_all_cards"]["launches"]} if cards_checks else {})
     soak_checks = p11["soak"]["kernel_checks"]
     mono_checks = bench["mono"]["checks"]
 
@@ -2657,6 +3022,11 @@ def main() -> int:
          "mesh_max_abs_err": shard_checks[k]["max_abs_err"] if k in shard_checks else None,
          "mesh_plain_calls": (shard_checks[k]["compared_by_stream"]
                               if k in shard_checks else None),
+         "mesh_cards_launches": cards_launches.get(k, 0) if cards_checks else None,
+         "mesh_cards_max_abs_err": (cards_checks[k]["max_abs_err"]
+                                    if k in cards_checks else None),
+         "mesh_cards_plain_calls": (cards_checks[k]["compared_by_stream"]
+                                    if k in cards_checks else None),
          "soak_max_abs_err": soak_checks[k]["max_abs_err"] if k in soak_checks else None,
          "soak_plain_calls": (len(soak_checks[k]["compared_calls"])
                               if k in soak_checks else None),

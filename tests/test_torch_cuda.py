@@ -965,8 +965,10 @@ def _pooled_smoke(copies):
     return expected, names, [io.BytesIO(data[n]) for n in names for _ in range(copies)]
 
 
-def _launch_streams(monkeypatch):
-    """Record (kernel, raw stream handle) of every launch from now on."""
+def _launch_streams(monkeypatch, cards=False):
+    """Record (kernel, raw stream handle) of every launch from now on;
+    with ``cards``, (kernel, card index, handle): the handles of two
+    cards' default streams are equal."""
     import collections
 
     from alacnet_tpu_torch.ops.cuda import _lib
@@ -976,7 +978,9 @@ def _launch_streams(monkeypatch):
 
     def rec(name, device, *args):
         index = device.index if device.index is not None else torch.cuda.current_device()
-        seen[(name.removeprefix("alac_"), torch._C._cuda_getCurrentRawStream(index))] += 1
+        handle = torch._C._cuda_getCurrentRawStream(index)
+        kernel = name.removeprefix("alac_")
+        seen[(kernel, index, handle) if cards else (kernel, handle)] += 1
         return orig(name, device, *args)
 
     monkeypatch.setattr(_lib, "launch", rec)
@@ -1041,6 +1045,116 @@ def test_mesh_launches_each_kernel_on_each_shard_stream(cuda, monkeypatch):
                     music.sample_rate, 16, mesh=mesh)
     for k in ("enc_prologue", "enc_pred", "enc_rice", "zero_runs", "pair_merge"):
         assert all(seen[(k, h)] > 0 for h in handles), (k, seen)
+
+
+#: Copies of each smoke file in the pooled decode over every card, as
+#: chip_smoke.py's COPIES.
+CARD_COPIES = 96
+
+
+@pytest.fixture
+def cards(cuda):
+    """Every visible card, where there are two or more."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip(f"needs two or more CUDA cards: {count} visible")
+    return [torch.device("cuda", i) for i in range(count)]
+
+
+def test_mesh_over_every_card_matches_one_card(cards):
+    """decode_streams(mesh=make_mesh()) over every visible card equals
+    one card's PCM (and expected.json), file for file."""
+    import hashlib
+
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    assert list(mesh.devices) == cards
+    expected, names, streams = _pooled_smoke(MESH_COPIES)
+    single = at.decode_streams(streams, device="cuda:0")
+    _, _, streams = _pooled_smoke(MESH_COPIES)
+    meshed = at.decode_streams(streams, mesh=mesh)
+    for i, (s, m) in enumerate(zip(single, meshed)):
+        assert m.pcm.dtype == s.pcm.dtype
+        np.testing.assert_array_equal(m.pcm, s.pcm)
+        le = m.pcm.dtype.newbyteorder("<")
+        want = expected[names[i // MESH_COPIES]]["sha256"]
+        assert hashlib.sha256(m.pcm.astype(le).tobytes()).hexdigest() == want
+
+
+def test_mesh_launches_each_kernel_on_each_cards_stream(cards, monkeypatch):
+    """Over every card, each decode and encode kernel launches on each
+    card's shard stream and on no other stream; blob_words once a card,
+    on that card's current stream."""
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    shards = {(d.index, s.cuda_stream) for d, s in zip(mesh.devices, mesh.streams)}
+    current = {(d.index, torch.cuda.current_stream(d).cuda_stream) for d in cards}
+    seen = _launch_streams(monkeypatch, cards=True)
+    # at 96 copies each of up to 8 shards holds raw-frame lanes (bulk_bits)
+    _, names, streams = _pooled_smoke(CARD_COPIES)
+    decoded = at.decode_streams(streams, mesh=mesh)
+    for k in ("pack_rows", "rice_lpc", "bulk_bits", "dec_epilogue"):
+        assert all(seen[(k, *sh)] > 0 for sh in shards), (k, seen)
+    assert {(i, h) for k, i, h in seen if k != "blob_words"} == shards
+    assert {(i, h): c for (k, i, h), c in seen.items() if k == "blob_words"} == dict.fromkeys(
+        current, 1)
+    seen.clear()
+    music = decoded[names.index("music.m4a") * CARD_COPIES]
+    at.encode_files([music.pcm] * len(cards), [io.BytesIO() for _ in cards],
+                    music.sample_rate, 16, mesh=mesh)
+    for k in ("enc_prologue", "enc_pred", "enc_rice", "zero_runs", "pair_merge"):
+        assert all(seen[(k, *sh)] > 0 for sh in shards), (k, seen)
+    assert {(i, h) for _, i, h in seen} == shards
+
+
+def test_encode_frames_device_over_every_card_matches_host(cards):
+    """encode_frames_device(mesh=) over every card: a ragged slice (a
+    partial frame, a frame count that does not split evenly) byte for
+    byte against the host encoder and one card."""
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.codec.encoder_device import encode_frames_device
+    from alacnet_tpu_torch.parallel.mesh import make_mesh
+
+    _, names, streams = _pooled_smoke(1)
+    music = at.decode_streams(streams, device="cuda")[names.index("music.m4a")]
+    S = 4096
+    frames = [music.pcm[i : i + S] for i in range(0, music.pcm.shape[0], S)]
+    frames = frames[: 2 * len(cards) + 1]
+    frames[1] = frames[1][:1000]
+    params = at.default_cookie(music.sample_rate, 16, 2)
+    host = at.AlacEncoder(params)
+    want = [host.encode_frame(f) for f in frames]
+    assert encode_frames_device(frames, params, device="cuda:0") == want
+    assert encode_frames_device(frames, params, mesh=make_mesh()) == want
+
+
+def test_cli_batch_decode_mesh_over_every_card(cards, tmp_path, capsys):
+    """``alac-tpu-torch batch-decode --mesh`` (decode_files over
+    make_mesh(), every visible card) writes the WAV files that one card
+    writes."""
+    from alacnet_tpu_torch import cli
+
+    paths = sorted(str(p) for p in SMOKE.glob("*.m4a"))
+    for mesh in (False, True):
+        args = ["batch-decode", *paths, "--out-dir", str(tmp_path / f"d{int(mesh)}")]
+        assert cli.main(args + ["--mesh"] * mesh) == 0
+    capsys.readouterr()
+    wavs = sorted(p.name for p in (tmp_path / "d0").iterdir())
+    assert len(wavs) == len(paths)
+    for name in wavs:
+        assert (tmp_path / "d1" / name).read_bytes() == (tmp_path / "d0" / name).read_bytes()
+
+
+def test_dryrun_multichip_over_every_card(cards):
+    from alacnet_tpu_torch.parallel.mesh import dryrun_multichip
+
+    rec = dryrun_multichip(len(cards))
+    assert rec["devices"] == [str(d) for d in cards]
+    assert rec["shards"] == len(cards) and rec["encoded_frames"] == 2 * len(cards) + 1
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,12 @@ bit for bit.  The worker is this file run as a script:
 
 Modes: ``even`` (every process ingests FRAMES_PER_PROC frames),
 ``uneven`` (process p ingests FRAMES_PER_PROC + (P-1-p) frames and pads
-to the common local batch with n_samples=0 lanes) and ``mismatch``
-(process p pads to a local batch of its own, which must raise).
+to the common local batch with n_samples=0 lanes), ``mismatch``
+(process p pads to a local batch of its own, which must raise) and
+``ranks`` (as ``even``, but each process takes its devices through
+``global_mesh()``'s default under ``LOCAL_RANK``/``LOCAL_WORLD_SIZE``,
+from LOCAL_SHARDS * P stand-in cards ``cpu:0``, ``cpu:1``, ...: the
+visible card count is faked inside the worker).
 ALAC_DIST_INIT_TIMEOUT bounds the rendezvous, so a missing peer fails
 the job instead of hanging it.
 """
@@ -63,7 +67,17 @@ def worker(coordinator: str, nprocs: int, pid: int, mode: str) -> int:
     dist.initialize(coordinator, nprocs, pid, initialization_timeout=timeout,
                     backend="gloo")
     try:
-        mesh = dist.global_mesh(["cpu"] * LOCAL_SHARDS)
+        if mode == "ranks":
+            import torch
+
+            cards = [torch.device("cpu", i) for i in range(LOCAL_SHARDS * nprocs)]
+            dist.visible_cards = lambda: cards
+            mesh = dist.global_mesh()
+            mine = [d.index for d in mesh.local.devices]
+            if mine != list(range(pid * LOCAL_SHARDS, (pid + 1) * LOCAL_SHARDS)):
+                raise RuntimeError(f"rank {pid} took cards {mine}")
+        else:
+            mesh = dist.global_mesh(["cpu"] * LOCAL_SHARDS)
         if (mesh.rank, mesh.world_size) != (pid, nprocs):
             raise RuntimeError(f"rank {mesh.rank}/{mesh.world_size}")
         if mode == "uneven":
@@ -110,13 +124,21 @@ def _free_port() -> int:
 
 def _launch(nprocs, mode="even", skip=(), extra_env=None):
     coordinator = f"127.0.0.1:{_free_port()}"
-    env = {**os.environ, **(extra_env or {})}
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    env.update(extra_env or {})
+
+    def rank_env(pid):
+        if mode != "ranks":
+            return env
+        return {**env, "LOCAL_RANK": str(pid), "LOCAL_WORLD_SIZE": str(nprocs)}
+
     return [
         subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), coordinator, str(nprocs),
              str(pid), mode],
-            env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True,
+            env=rank_env(pid), cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
         )
         for pid in range(nprocs)
         if pid not in skip
@@ -136,13 +158,51 @@ def _communicate(procs, timeout):
     return outs
 
 
-@pytest.mark.parametrize("nprocs,mode", [(2, "even"), (2, "uneven"), (4, "uneven")])
+@pytest.mark.parametrize("nprocs,mode", [(2, "even"), (2, "uneven"), (4, "uneven"),
+                                         (2, "ranks")])
 def test_torch_multiprocess_decode_bit_exact(nprocs, mode):
     procs = _launch(nprocs, mode)
     outs = _communicate(procs, timeout=240)
     for pid, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"worker {pid} failed:\n{out}"
         assert f"proc {pid}/{nprocs}: OK" in out
+
+
+@pytest.mark.parametrize("local_world,cards,shares", [
+    (2, 4, [[0, 1], [2, 3]]),              # an even split
+    (4, 4, [[0], [1], [2], [3]]),          # one card each of four
+    (1, 4, [[0, 1, 2, 3]]),                # one process with every card
+    (2, 8, [[0, 1, 2, 3], [4, 5, 6, 7]]),
+    (3, 4, None),                          # uneven: raises
+    (4, 2, None),                          # a share of zero cards: raises
+    (2, 0, None),
+])
+def test_each_rank_takes_its_own_cards(local_world, cards, shares, monkeypatch):
+    """``local_cards`` gives the ranks of one host equal, disjoint,
+    contiguous shares that cover every card, or raises naming the
+    counts; ``rank_devices`` maps the share onto the visible cards."""
+    import torch
+
+    import alacnet_tpu_torch.parallel.distributed as tdist
+
+    if shares is None:
+        for rank in range(local_world):
+            with pytest.raises(ValueError, match=f"{cards} visible cards .* {local_world} ranks"):
+                tdist.local_cards(rank, local_world, cards)
+        return
+    got = [list(tdist.local_cards(r, local_world, cards)) for r in range(local_world)]
+    assert got == shares
+    with pytest.raises(ValueError, match="outside"):
+        tdist.local_cards(local_world, local_world, cards)
+    visible = [torch.device("cpu", i) for i in range(cards)]
+    monkeypatch.setattr(tdist, "visible_cards", lambda: visible)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    assert tdist.rank_devices() == visible
+    for r, share in enumerate(shares):
+        monkeypatch.setenv("LOCAL_RANK", str(r))
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", str(local_world))
+        assert [d.index for d in tdist.rank_devices()] == share
 
 
 def test_torch_missing_worker_fails_within_its_timeout():
