@@ -1,0 +1,15 @@
+"""``enc_pred``'s share of its roofline over the traced window: the least
+time of the work the window's frames need (``yardstick.enc_pred_work``,
+counted from the inputs) over the summed device time of its kernels."""
+
+from benchmark import yardstick
+
+LAYER = "kernels"
+UNIT = "%"
+BETTER = "higher"
+SOURCE = "device_trace"
+MOVES = "encode_msamples_per_s"
+
+
+def read(w):
+    return yardstick.roofline_pct(w, yardstick.enc_pred_work, "enc_pred_kernel")

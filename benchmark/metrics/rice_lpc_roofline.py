@@ -1,0 +1,15 @@
+"""``rice_lpc``'s share of its roofline over the traced window: the least
+time of the work the window's frames need (``yardstick.rice_lpc_work``,
+counted from the inputs) over the summed device time of its kernels."""
+
+from benchmark import yardstick
+
+LAYER = "kernels"
+UNIT = "%"
+BETTER = "higher"
+SOURCE = "device_trace"
+MOVES = "decode_msamples_per_s"
+
+
+def read(w):
+    return yardstick.roofline_pct(w, yardstick.rice_lpc_work, "rice_lpc_kernel")
