@@ -19,6 +19,7 @@ import numpy as np
 from .config import DecodeConfig, resolve
 from .container import demux
 from .parallel.pipeline import decode_blob
+from .utils.observability import trace_span
 
 
 @dataclasses.dataclass
@@ -72,6 +73,28 @@ def decode_streams(
     if mesh is not None:
         device = str(mesh.devices[0])
     config = resolve(config, device=device, strict=strict)
+    with trace_span("alac.host.demux"):
+        infos, spans, pooled, params = _pool(streams)
+    if pooled is None:  # no frames
+        return [
+            DecodedAudio(
+                pcm=np.zeros((0, info.num_channels_or_default()), np.int32),
+                sample_rate=info.sample_rate_or_default(),
+                bits_per_sample=info.bits_per_sample_or_default(),
+                channels=info.num_channels_or_default(),
+            )
+            for info in infos
+        ]
+    max_s = max(i.params.max_samples_per_frame for i in infos)
+    out, n, status = decode_blob(*pooled, params, max_s, config=config, mesh=mesh)
+    with trace_span("alac.host.assembly"):
+        return _assemble(infos, spans, out, n, status)
+
+
+def _pool(streams: Iterable[BinaryIO]):
+    """Each stream's container and bytes, pooled: (infos, each file's
+    [lo, hi) frame span, (blob, offsets, sizes) of every frame in one
+    byte blob, each frame's codec parameters)."""
     infos, spans = [], []
     blobs, all_offsets, all_sizes, all_params = [], [], [], []
     blob_base = 0
@@ -89,26 +112,15 @@ def decode_streams(
         blob_base += blob.size
         total_frames += len(offsets)
     if not total_frames:
-        return [
-            DecodedAudio(
-                pcm=np.zeros((0, info.num_channels_or_default()), np.int32),
-                sample_rate=info.sample_rate_or_default(),
-                bits_per_sample=info.bits_per_sample_or_default(),
-                channels=info.num_channels_or_default(),
-            )
-            for info in infos
-        ]
-    max_s = max(i.params.max_samples_per_frame for i in infos)
-    out, n, status = decode_blob(
-        np.concatenate(blobs),
-        np.concatenate(all_offsets),
-        np.concatenate(all_sizes),
-        all_params,
-        max_s,
-        config=config,
-        mesh=mesh,
-    )
-    # Vectorized ragged assembly: one boolean compress per file.
+        return infos, spans, None, all_params
+    pooled = (np.concatenate(blobs), np.concatenate(all_offsets),
+              np.concatenate(all_sizes))
+    return infos, spans, pooled, all_params
+
+
+def _assemble(infos, spans, out, n, status) -> list[DecodedAudio]:
+    """Each file's PCM from the pooled (F, S, 2) samples: its frames'
+    first n[f] samples of its channels, in one boolean compress."""
     S = out.shape[1]
     valid = np.arange(S)[None, :] < n[:, None]  # (F, S)
     results = []

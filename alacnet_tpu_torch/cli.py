@@ -260,7 +260,8 @@ def _cmd_verify(args) -> int:
 
 
 def _cmd_stats(args) -> int:
-    """Decode file(s) and print the pipeline counters."""
+    """Decode file(s) and print the pipeline counters: frames, samples,
+    bytes, batches, and each span's seconds and count."""
     from .batch import decode_files
     from .utils.observability import GLOBAL_STATS
 
@@ -396,7 +397,7 @@ def main(argv: list[str] | None = None) -> int:
     _device_arg(p, "torch device of the decodes and the re-encode (default cuda)")
     p.set_defaults(fn=_cmd_verify)
 
-    p = sub.add_parser("stats", help="decode files and print pipeline counters")
+    p = sub.add_parser("stats", help="decode files; print the counters and each span's seconds")
     p.add_argument("paths", nargs="+")
     _device_arg(p, on_dev)
     p.set_defaults(fn=_cmd_stats)

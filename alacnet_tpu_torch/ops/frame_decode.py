@@ -25,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.observability import trace_span
 from ..utils.transfer import h2d
 from .bitops import I32
 from .bitreader import gather_bits
@@ -133,7 +134,8 @@ class FrameMetaArrays(NamedTuple):
     @classmethod
     def from_packed(cls, packed: np.ndarray, device) -> "FrameMetaArrays":
         """One H2D copy of the host matrix ``pack_host`` builds, unpacked."""
-        return cls.unpack(h2d(np.asarray(packed, np.int32), torch.device(device)))
+        with trace_span("alac.host.h2d"):
+            return cls.unpack(h2d(np.asarray(packed, np.int32), torch.device(device)))
 
     @classmethod
     def from_batch(cls, fb, device) -> "FrameMetaArrays":

@@ -28,6 +28,7 @@ from ..ops.cuda.pack_rows import pack_rows
 from ..ops.encode import RiceEncParams, encode_stages_pcm
 from ..ops.frame_decode import FrameMetaArrays, decode_frames_packed
 from ..ops.lpc import LpcParams
+from ..utils.observability import trace_span
 from ..utils.transfer import d2h_async, h2d
 
 FRAME_AXIS = "frames"
@@ -219,9 +220,10 @@ def _shard_rows(rows: np.ndarray, mesh: Mesh) -> Sharded:
     """Upload each shard's slice of a (B, ...) host array on its stream."""
     b = mesh.lanes(rows.shape[0])
     parts = []
-    for i in range(mesh.size):
-        with mesh.shard(i) as dev:
-            parts.append(h2d(rows[i * b : (i + 1) * b], dev))
+    with trace_span("alac.host.h2d"):
+        for i in range(mesh.size):
+            with mesh.shard(i) as dev:
+                parts.append(h2d(rows[i * b : (i + 1) * b], dev))
     return Sharded(tuple(parts), mesh.streams)
 
 
@@ -248,7 +250,7 @@ def decode_frames_spmd(
     b = mesh.lanes(packed_meta.shape[0])
     outs, ns = [], []
     for i in range(mesh.size):
-        with mesh.shard(i):
+        with trace_span(f"alac.host.enqueue.shard{i}"), mesh.shard(i):
             out, n = decode_frames_packed(
                 words.parts[i], packed_meta[i * b : (i + 1) * b], num_samples,
                 emit16=emit16, kernel=kernel,
@@ -277,8 +279,9 @@ def decode_frames_spmd_rows(
     outs, ns = [], []
     for i in range(mesh.size):
         lo, hi = i * b, (i + 1) * b
-        with mesh.shard(i) as dev:
-            r = h2d(rows[:, lo:hi], dev)
+        with trace_span(f"alac.host.enqueue.shard{i}"), mesh.shard(i) as dev:
+            with trace_span("alac.host.h2d"):
+                r = h2d(rows[:, lo:hi], dev)
             words = pack_rows(bwords[i], r[0], r[1], W, kernel=kernel)
             out, n = decode_frames_packed(
                 words, packed_meta[lo:hi], num_samples, emit16=emit16,

@@ -29,7 +29,9 @@ from ..ops.cuda.pack_rows import (
     blob_words, blob_words_uploader, host_row_params, pack_rows,
 )
 from ..ops.frame_decode import FrameMetaArrays, decode_frames_packed
-from ..utils.observability import GLOBAL_STATS, trace_span
+from ..utils.observability import (
+    GLOBAL_STATS, PARSE_SPAN, RESULT_WAIT_SPAN, trace_span,
+)
 from ..utils.transfer import d2h_async, h2d
 from .mesh import Sharded, _shard_rows, decode_frames_spmd, decode_frames_spmd_rows
 
@@ -139,10 +141,12 @@ def launch_frame_batch(
         )
     dev = config.torch_device
     if staged.rows is not None:
-        rows = h2d(staged.rows, dev)
+        with trace_span("alac.host.h2d"):
+            rows = h2d(staged.rows, dev)
         words = pack_rows(bwords, rows[0], rows[1], staged.W, kernel=config.kernel)
     else:
-        words = h2d(staged.words.view(np.int32), dev)
+        with trace_span("alac.host.h2d"):
+            words = h2d(staged.words.view(np.int32), dev)
     return decode_frames_packed(
         words, staged.meta, max_samples, emit16=staged.emit16, kernel=config.kernel,
     )
@@ -301,7 +305,7 @@ def blob_spans(blob, offsets, sizes, params, batch_limit: int, config: DecodeCon
     ``max_w``, its device row parameters ``(ow, nbytes, W)`` (else None).
     """
     sizes = np.asarray(sizes)
-    with trace_span("alac.host.parse", "host_seconds"):
+    with trace_span(PARSE_SPAN):
         perm, inv, spans, span_batch = plan_blob_batches(
             blob, offsets, sizes, params, batch_limit, config.strict,
             native=config.native,
@@ -318,7 +322,7 @@ def blob_spans(blob, offsets, sizes, params, batch_limit: int, config: DecodeCon
     def assemble():
         for lo, hi in spans:
             idx = perm[lo:hi]
-            with trace_span("alac.host.parse", "host_seconds"):
+            with trace_span(PARSE_SPAN):
                 if max_w is not None:
                     fb, ow, nb, W = span_batch(idx, device_rows=True)
                     rows = (ow, nb, W)
@@ -370,12 +374,15 @@ def decode_blob(
     sizes = np.asarray(sizes)
     inv, max_w, spans = blob_spans(blob, offsets, sizes, params, batch_limit, config)
     bwords = None
-    if max_w is not None and mesh is not None:
-        # one host staging of the blob; each distinct card uploads from it
-        bwords = mesh.replicated(blob_words_uploader(np.asarray(blob), max_w, config.kernel))
-    elif max_w is not None:
-        bwords = blob_words(np.asarray(blob), config.torch_device, max_w=max_w,
-                            kernel=config.kernel)
+    if max_w is not None:
+        with trace_span("alac.host.h2d"):
+            if mesh is not None:
+                # one host staging of the blob; each distinct card uploads from it
+                bwords = mesh.replicated(
+                    blob_words_uploader(np.asarray(blob), max_w, config.kernel))
+            else:
+                bwords = blob_words(np.asarray(blob), config.torch_device,
+                                    max_w=max_w, kernel=config.kernel)
     outs, ns, sts = [], [], []
     pending: list = []
 
@@ -385,7 +392,7 @@ def decode_blob(
             GLOBAL_STATS.record(frames=frames, coded_bytes=nbytes)
             sts.append(status)
             return
-        with trace_span("alac.device.result_wait", "result_wait_seconds"):
+        with trace_span(RESULT_WAIT_SPAN):
             out, n = wait()
         if (n < 0).any():
             raise AssertionError("decode returned a negative sample count")
@@ -397,17 +404,19 @@ def decode_blob(
         sts.append(status)
 
     for idx, fb, rows in spans:
-        out_d, n_d, orig_b = dispatch_frame_batch(
-            fb, max_samples, config,
-            device_rows=None if rows is None else (bwords, *rows), mesh=mesh,
-        )
+        with trace_span("alac.host.enqueue"):
+            out_d, n_d, orig_b = dispatch_frame_batch(
+                fb, max_samples, config,
+                device_rows=None if rows is None else (bwords, *rows), mesh=mesh,
+            )
+            if sink is not None:
+                wait = None
+            elif mesh is not None:
+                wait = _fetch_sharded(out_d, n_d, orig_b)
+            else:
+                wait = d2h_async(out_d[:orig_b], n_d[:orig_b])
         if sink is not None:
             sink(out_d, n_d, orig_b)
-            wait = None
-        elif mesh is not None:
-            wait = _fetch_sharded(out_d, n_d, orig_b)
-        else:
-            wait = d2h_async(out_d[:orig_b], n_d[:orig_b])
         pending.append(
             (wait, orig_b, len(idx), int(sizes[idx].sum()), fb.status[: len(idx)])
         )
@@ -415,26 +424,15 @@ def decode_blob(
             drain_one()
     while pending:
         drain_one()
-    if sink is not None:
-        status = (
-            np.concatenate(sts)[inv] if sts else np.zeros(0, np.int32)
-        )
-        return (
-            np.zeros((0, max_samples, 2), np.int32),
-            np.zeros(0, np.int32),
-            status,
-        )
-    if not outs:
-        return (
-            np.zeros((0, max_samples, 2), np.int32),
-            np.zeros(0, np.int32),
-            np.zeros(0, np.int32),
-        )
-    return (
-        np.concatenate(outs)[inv],
-        np.concatenate(ns)[inv],
-        np.concatenate(sts)[inv],
-    )
+    with trace_span("alac.host.unsort"):
+        status = np.concatenate(sts)[inv] if sts else np.zeros(0, np.int32)
+        if not outs:  # a sink took the PCM, or there were no frames
+            return (
+                np.zeros((0, max_samples, 2), np.int32),
+                np.zeros(0, np.int32),
+                status,
+            )
+        return np.concatenate(outs)[inv], np.concatenate(ns)[inv], status
 
 
 def _fetch_sharded(out: Sharded, n: Sharded, orig_b: int):

@@ -3,15 +3,29 @@
 The counterpart of ``alacnet_tpu/utils/observability.py``:
 
   * ``DecodeStats`` / ``GLOBAL_STATS`` — process-wide counters (frames,
-    samples, bytes, host-parse seconds and device-result *wait* seconds)
-    with the Msamples/s derivation;
+    samples, bytes, batches) and each span's seconds and count;
   * ``trace_span`` — a wall-clock span that also opens a
     ``torch.profiler.record_function`` range, so a ``torch.profiler``
-    trace shows the pipeline stages beside the kernels;
+    trace shows the pipeline stages beside the kernels, and adds its
+    seconds to ``GLOBAL_STATS`` under its name;
   * ``capture_trace`` — a ``torch.profiler`` run written out as a
     Chrome trace (chrome://tracing, Perfetto);
   * ``profile_busy`` — a callable run under the profiler: the device's
     busy time, its share of the wall and the busiest device ops.
+
+The decode's spans (``parallel/pipeline.py``, ``parallel/mesh.py``,
+``batch.py``), innermost ranges named by what the host does there:
+
+  * ``alac.host.demux`` — container parse, stream read, pooling;
+  * ``alac.host.parse`` — frame headers, the lane plan, each batch's
+    fields and rows cut from it (:data:`PARSE_SPAN`);
+  * ``alac.host.h2d`` — host staging and uploads, the blob's byteswap;
+  * ``alac.host.enqueue`` — one batch's dispatch and the issue of its
+    copy back; ``alac.host.enqueue.shard<i>`` — mesh shard i's part;
+  * ``alac.device.result_wait`` — blocked on a batch's copy back
+    (:data:`RESULT_WAIT_SPAN`);
+  * ``alac.host.unsort`` — the PCM put back in the frames' order;
+  * ``alac.host.assembly`` — each file's PCM cut from the pool.
 """
 
 from __future__ import annotations
@@ -27,6 +41,11 @@ import torch
 
 logger = logging.getLogger("alacnet_tpu_torch")
 
+#: The span whose seconds are ``DecodeStats.host_seconds``.
+PARSE_SPAN = "alac.host.parse"
+#: The span whose seconds are ``DecodeStats.result_wait_seconds``.
+RESULT_WAIT_SPAN = "alac.device.result_wait"
+
 
 @dataclasses.dataclass
 class DecodeStats:
@@ -35,35 +54,39 @@ class DecodeStats:
     frames: int = 0
     samples: int = 0
     coded_bytes: int = 0
-    #: Host wall-clock spent *blocked on* device results (the D2H wait),
-    #: not pure device compute time (use a torch.profiler trace).
-    result_wait_seconds: float = 0.0
-    host_seconds: float = 0.0
+    #: Frame batches decoded (one :meth:`record` call each).
     dispatches: int = 0
+    #: Wall seconds and entries of every :func:`trace_span`, by name.
+    span_seconds: dict = dataclasses.field(default_factory=dict)
+    span_counts: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         self._lock = threading.Lock()
 
-    def record(
-        self,
-        frames: int = 0,
-        samples: int = 0,
-        coded_bytes: int = 0,
-        result_wait_seconds: float = 0.0,
-        host_seconds: float = 0.0,
-    ) -> None:
+    def record(self, frames: int = 0, samples: int = 0, coded_bytes: int = 0) -> None:
+        """Count one decoded batch."""
         with self._lock:
             self.frames += frames
             self.samples += samples
             self.coded_bytes += coded_bytes
-            self.result_wait_seconds += result_wait_seconds
-            self.host_seconds += host_seconds
             self.dispatches += 1
 
+    def record_span(self, name: str, seconds: float) -> None:
+        with self._lock:
+            self.span_seconds[name] = self.span_seconds.get(name, 0.0) + seconds
+            self.span_counts[name] = self.span_counts.get(name, 0) + 1
+
     @property
-    def msamples_per_second(self) -> float:
-        t = self.result_wait_seconds + self.host_seconds
-        return self.samples / t / 1e6 if t > 0 else 0.0
+    def host_seconds(self) -> float:
+        """Host wall-clock in plan and parse (the ``alac.host.parse`` spans)."""
+        return self.span_seconds.get(PARSE_SPAN, 0.0)
+
+    @property
+    def result_wait_seconds(self) -> float:
+        """Host wall-clock *blocked on* device results (the D2H wait, the
+        ``alac.device.result_wait`` spans), not device compute time (use a
+        torch.profiler trace)."""
+        return self.span_seconds.get(RESULT_WAIT_SPAN, 0.0)
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -71,17 +94,20 @@ class DecodeStats:
                 "frames": self.frames,
                 "samples": self.samples,
                 "coded_bytes": self.coded_bytes,
-                "result_wait_seconds": round(self.result_wait_seconds, 6),
-                "host_seconds": round(self.host_seconds, 6),
                 "dispatches": self.dispatches,
-                "msamples_per_second": round(self.msamples_per_second, 3),
+                "host_seconds": round(self.host_seconds, 6),
+                "result_wait_seconds": round(self.result_wait_seconds, 6),
+                "spans": {
+                    name: {"seconds": round(s, 6), "count": self.span_counts[name]}
+                    for name, s in sorted(self.span_seconds.items())
+                },
             }
 
     def reset(self) -> None:
         with self._lock:
-            self.frames = self.samples = self.coded_bytes = 0
-            self.result_wait_seconds = self.host_seconds = 0.0
-            self.dispatches = 0
+            self.frames = self.samples = self.coded_bytes = self.dispatches = 0
+            self.span_seconds.clear()
+            self.span_counts.clear()
 
 
 #: Process-wide stats for the decode pipeline.
@@ -89,21 +115,15 @@ GLOBAL_STATS = DecodeStats()
 
 
 @contextlib.contextmanager
-def trace_span(name: str, stats_field: str | None = None):
-    """Wall-clock + profiler span.
-
-    ``stats_field``: 'result_wait_seconds' or 'host_seconds' to
-    accumulate the elapsed time into GLOBAL_STATS.
-    """
+def trace_span(name: str):
+    """Wall-clock + profiler span; its seconds and one entry go to
+    ``GLOBAL_STATS`` under ``name``."""
     t0 = time.perf_counter()
     with torch.profiler.record_function(name):
         yield
     dt = time.perf_counter() - t0
     logger.debug("span %s: %.3f ms", name, dt * 1e3)
-    if stats_field == "result_wait_seconds":
-        GLOBAL_STATS.record(result_wait_seconds=dt)
-    elif stats_field == "host_seconds":
-        GLOBAL_STATS.record(host_seconds=dt)
+    GLOBAL_STATS.record_span(name, dt)
 
 
 @dataclasses.dataclass

@@ -1,0 +1,163 @@
+"""The port's decode spans and counters, on the CPU at a tiny size:
+every stage of a ``decode_streams`` request under its own
+``trace_span`` (a ``torch.profiler`` range), each span's seconds and
+count in ``GLOBAL_STATS``, and the same PCM with the profiler on and off.
+
+Frames of 64 samples and batches of 4 lanes keep the plain torch
+versions' per-sample loops, and the profiler's events, few.
+"""
+
+import collections
+import io
+import json
+import time
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import alacnet_tpu_torch  # noqa: E402
+from alacnet_tpu.codec.encoder import EncoderConfig  # noqa: E402
+from alacnet_tpu_torch import batch  # noqa: E402
+from alacnet_tpu_torch import cli as tcli  # noqa: E402
+from alacnet_tpu_torch.parallel.mesh import Mesh  # noqa: E402
+from alacnet_tpu_torch.parallel.pipeline import plan_blob_batches  # noqa: E402
+from alacnet_tpu_torch.utils.observability import (  # noqa: E402
+    GLOBAL_STATS, capture_trace, trace_span,
+)
+
+from .corpus import encode_to_bytes, tone  # noqa: E402
+
+FS = 64  # samples per frame
+LIMIT = 4  # lanes per batch
+SHARDS = 4
+#: The decode's spans, outermost first where they nest.
+SPANS = ["alac.host.demux", "alac.host.parse", "alac.host.enqueue",
+         "alac.host.enqueue.shard0", "alac.host.h2d", "alac.device.result_wait",
+         "alac.host.unsort", "alac.host.assembly"]
+ONE_DEVICE_SPANS = [s for s in SPANS if ".shard" not in s]
+
+
+@pytest.fixture(scope="module")
+def files():
+    """Two stereo 16-bit files of 5 and 6 frames, the last one partial."""
+    return [encode_to_bytes(tone(FS * k + 9, 2, 16, seed=k), 44100, 16,
+                            EncoderConfig(order=6), max_samples_per_frame=FS)
+            for k in (4, 5)]
+
+
+def config():
+    return alacnet_tpu_torch.DecodeConfig(device="cpu", batch_limit=LIMIT)
+
+
+def decode(files, mesh=None):
+    return alacnet_tpu_torch.decode_streams([io.BytesIO(d) for d in files],
+                                            config=config(), mesh=mesh)
+
+
+def batches(files) -> int:
+    """The batches the decode plans for the pooled files."""
+    _, _, pooled, params = batch._pool([io.BytesIO(d) for d in files])
+    return len(plan_blob_batches(*pooled, params, LIMIT, strict=True)[2])
+
+
+def traced(files, mesh=None):
+    """The decode under ``capture_trace``: its results and the number of
+    each ``alac.*`` range in the trace."""
+    with capture_trace(None) as trace:
+        out = decode(files, mesh)
+    names = (e.name() for e in trace.profiler.profiler.kineto_results.events())
+    return out, collections.Counter(n for n in names if n.startswith("alac."))
+
+
+@pytest.fixture(scope="module")
+def traces(files):
+    return {"one": traced(files), "mesh": traced(files, Mesh(["cpu"] * SHARDS))}
+
+
+@pytest.fixture(scope="module")
+def counted(files):
+    """``GLOBAL_STATS`` after one decode on one device (its snapshot, its
+    span seconds, host and wait seconds), and the decode's wall time."""
+    GLOBAL_STATS.reset()
+    t0 = time.perf_counter()
+    decode(files)
+    wall = time.perf_counter() - t0
+    return {"snapshot": GLOBAL_STATS.snapshot(), "wall": wall,
+            "seconds": dict(GLOBAL_STATS.span_seconds),
+            "host": GLOBAL_STATS.host_seconds, "wait": GLOBAL_STATS.result_wait_seconds}
+
+
+@pytest.mark.parametrize("name", SPANS)
+def test_decode_holds_every_span(traces, name):
+    _, one = traces["one"]
+    _, mesh = traces["mesh"]
+    if ".shard" in name:
+        assert mesh[name] > 0 and one[name] == 0
+    else:
+        assert one[name] > 0 and mesh[name] > 0
+
+
+def test_mesh_enqueues_each_shard_once_per_batch(files, traces):
+    _, mesh = traces["mesh"]
+    n = batches(files)
+    assert n > 1
+    assert mesh["alac.host.enqueue"] == n
+    for i in range(SHARDS):
+        assert mesh[f"alac.host.enqueue.shard{i}"] == n
+    assert mesh[f"alac.host.enqueue.shard{SHARDS}"] == 0
+
+
+def test_stats_hold_every_span(counted):
+    seconds, snap = counted["seconds"], counted["snapshot"]
+    assert set(seconds) == set(ONE_DEVICE_SPANS)
+    assert set(snap["spans"]) == set(ONE_DEVICE_SPANS)
+    assert all(s["count"] > 0 for s in snap["spans"].values())
+    assert counted["host"] == seconds["alac.host.parse"] > 0
+    assert counted["wait"] == seconds["alac.device.result_wait"] > 0
+
+
+def test_no_span_outlasts_the_decode(counted):
+    for name, s in counted["seconds"].items():
+        assert 0 < s <= counted["wall"], name
+
+
+def test_dispatches_count_batches(files, counted):
+    snap = counted["snapshot"]
+    assert snap["dispatches"] == batches(files)
+    assert snap["spans"]["alac.host.enqueue"]["count"] == batches(files)
+
+
+def test_pcm_same_with_and_without_profiler(files, traces):
+    plain = decode(files)
+    for key in ("one", "mesh"):
+        out, _ = traces[key]
+        assert len(out) == len(plain)
+        for a, b in zip(out, plain):
+            assert a.pcm.dtype == b.pcm.dtype
+            np.testing.assert_array_equal(a.pcm, b.pcm)
+
+
+def test_span_counts_each_entry():
+    GLOBAL_STATS.reset()
+    for _ in range(3):
+        with trace_span("alac.test.span"):
+            pass
+    snap = GLOBAL_STATS.snapshot()
+    assert snap["spans"]["alac.test.span"]["count"] == 3
+    assert snap["dispatches"] == 0 and snap["host_seconds"] == 0
+    GLOBAL_STATS.reset()
+    assert GLOBAL_STATS.snapshot()["spans"] == {}
+
+
+def test_cli_stats_prints_each_span(files, tmp_path, capsys):
+    path = tmp_path / "a.m4a"
+    path.write_bytes(files[0])
+    assert tcli.main(["stats", str(path), "--device", "cpu"]) == 0
+    stats = json.loads(capsys.readouterr().out)
+    assert "msamples_per_second" not in stats
+    assert stats["files"] == 1 and stats["dispatches"] >= 1
+    assert set(stats["spans"]) == set(ONE_DEVICE_SPANS)
+    for s in stats["spans"].values():
+        assert s["seconds"] >= 0 and s["count"] >= 1
