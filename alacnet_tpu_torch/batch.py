@@ -19,7 +19,7 @@ import numpy as np
 from .config import DecodeConfig, resolve
 from .container import demux
 from .parallel.pipeline import decode_blob
-from .utils.observability import trace_span
+from .utils.observability import GLOBAL_STATS, trace_span
 
 
 @dataclasses.dataclass
@@ -118,24 +118,50 @@ def _pool(streams: Iterable[BinaryIO]):
     return infos, spans, pooled, all_params
 
 
+def _file_pcm(out, n, lo, hi, nch, dtype) -> np.ndarray:
+    """One file's (N, nch) PCM from its frames [lo, hi) of the pooled
+    (F, S, C) samples: each frame's first n[f] samples, frame after
+    frame, as ``dtype``.
+
+    A frame's samples are a prefix, so the frames are cut in runs of
+    equal n and each run is one block copy, its cast inside the
+    assignment.  A file that is the whole pool, every frame but the
+    last full, with every channel and the dtype already right, is a
+    view of the pool.  A file of a larger pool is always a copy of its
+    own.  Counted in ``GLOBAL_STATS`` (``record_assembly``).
+    """
+    F, S, C = out.shape
+    counts = n[lo:hi]
+    total = int(counts.sum())
+    if (lo == 0 and hi == F and nch == C and out.dtype == dtype
+            and bool((counts[:-1] == S).all())):
+        GLOBAL_STATS.record_assembly(view=True)
+        return out.reshape(-1, nch)[:total]
+    pcm = np.empty((total, nch), dtype)
+    starts = np.flatnonzero(np.diff(counts, prepend=-1))
+    row = runs = 0
+    for a, b in zip(starts, [*starts[1:], counts.size]):
+        k = int(counts[a])
+        if k:
+            m = (b - a) * k
+            pcm[row:row + m].reshape(b - a, k, nch)[...] = out[lo + a:lo + b, :k, :nch]
+            row += m
+            runs += 1
+    GLOBAL_STATS.record_assembly(runs=runs)
+    return pcm
+
+
 def _assemble(infos, spans, out, n, status) -> list[DecodedAudio]:
-    """Each file's PCM from the pooled (F, S, 2) samples: its frames'
-    first n[f] samples of its channels, in one boolean compress."""
-    S = out.shape[1]
-    valid = np.arange(S)[None, :] < n[:, None]  # (F, S)
+    """Each file's PCM from the pooled (F, S, 2) samples
+    (:func:`_file_pcm`): int16 for a 16-bit file, whatever the pool's
+    dtype (a mixed 16/24-bit or padded pool comes back int32)."""
     results = []
     for info, (lo, hi) in zip(infos, spans):
         nch = info.num_channels_or_default()
         if hi > lo:
-            block = out[lo:hi, :, :nch]
-            pcm = block.reshape(-1, nch)[valid[lo:hi].reshape(-1)]
-            if (
-                info.bits_per_sample_or_default() == 16
-                and pcm.dtype != np.int16
-            ):
-                # A mixed 16/24-bit pool upcasts the pooled array to
-                # int32 at concat; 16-bit files still ship int16.
-                pcm = pcm.astype(np.int16)
+            bits = info.bits_per_sample_or_default()
+            dtype = np.int16 if bits == 16 else out.dtype
+            pcm = _file_pcm(out, n, lo, hi, nch, dtype)
             bad = np.flatnonzero(status[lo:hi]).astype(np.int64)
         else:
             pcm = np.zeros((0, nch), np.int32)
@@ -230,8 +256,7 @@ def decode_resumable(
             blob, offsets[lo:hi] - lo_byte, sizes[lo:hi], info.params,
             info.params.max_samples_per_frame, config=config,
         )
-        valid = np.arange(out.shape[1])[None, :] < n[:, None]
-        pcm = out[:, :, :nch].reshape(-1, nch)[valid.reshape(-1)]
+        pcm = _file_pcm(out, n, 0, len(n), nch, out.dtype)
     result = DecodedAudio(
         pcm=pcm,
         sample_rate=info.sample_rate_or_default(),

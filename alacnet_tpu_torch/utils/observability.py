@@ -3,7 +3,8 @@
 The counterpart of ``alacnet_tpu/utils/observability.py``:
 
   * ``DecodeStats`` / ``GLOBAL_STATS`` — process-wide counters (frames,
-    samples, bytes, batches) and each span's seconds and count;
+    samples, bytes, batches, files assembled as views or in block
+    copies) and each span's seconds and count;
   * ``trace_span`` — a wall-clock span that also opens a
     ``torch.profiler.record_function`` range, so a ``torch.profiler``
     trace shows the pipeline stages beside the kernels, and adds its
@@ -56,6 +57,12 @@ class DecodeStats:
     coded_bytes: int = 0
     #: Frame batches decoded (one :meth:`record` call each).
     dispatches: int = 0
+    #: Files assembled from a decoded pool (``batch._file_pcm``): those
+    #: handed back as a view of the pool, and the block copies (runs of
+    #: frames) made for the others.
+    assembled_files: int = 0
+    assembly_views: int = 0
+    assembly_runs: int = 0
     #: Wall seconds and entries of every :func:`trace_span`, by name.
     span_seconds: dict = dataclasses.field(default_factory=dict)
     span_counts: dict = dataclasses.field(default_factory=dict)
@@ -70,6 +77,13 @@ class DecodeStats:
             self.samples += samples
             self.coded_bytes += coded_bytes
             self.dispatches += 1
+
+    def record_assembly(self, view: bool = False, runs: int = 0) -> None:
+        """Count one assembled file: a view, or a copy in ``runs`` blocks."""
+        with self._lock:
+            self.assembled_files += 1
+            self.assembly_views += int(view)
+            self.assembly_runs += runs
 
     def record_span(self, name: str, seconds: float) -> None:
         with self._lock:
@@ -95,6 +109,9 @@ class DecodeStats:
                 "samples": self.samples,
                 "coded_bytes": self.coded_bytes,
                 "dispatches": self.dispatches,
+                "assembled_files": self.assembled_files,
+                "assembly_views": self.assembly_views,
+                "assembly_runs": self.assembly_runs,
                 "host_seconds": round(self.host_seconds, 6),
                 "result_wait_seconds": round(self.result_wait_seconds, 6),
                 "spans": {
@@ -106,6 +123,7 @@ class DecodeStats:
     def reset(self) -> None:
         with self._lock:
             self.frames = self.samples = self.coded_bytes = self.dispatches = 0
+            self.assembled_files = self.assembly_views = self.assembly_runs = 0
             self.span_seconds.clear()
             self.span_counts.clear()
 

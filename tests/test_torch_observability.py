@@ -151,6 +151,22 @@ def test_span_counts_each_entry():
     assert GLOBAL_STATS.snapshot()["spans"] == {}
 
 
+def assembly(snap):
+    return snap["assembled_files"], snap["assembly_views"], snap["assembly_runs"]
+
+
+def test_assembly_counters_in_snapshot_and_reset(files, counted):
+    snap = counted["snapshot"]
+    assert snap["assembled_files"] == len(files)
+    assert snap["assembly_views"] + snap["assembly_runs"] >= len(files)
+    GLOBAL_STATS.reset()
+    GLOBAL_STATS.record_assembly(view=True)
+    GLOBAL_STATS.record_assembly(runs=2)
+    assert assembly(GLOBAL_STATS.snapshot()) == (2, 1, 2)
+    GLOBAL_STATS.reset()
+    assert assembly(GLOBAL_STATS.snapshot()) == (0, 0, 0)
+
+
 def test_cli_stats_prints_each_span(files, tmp_path, capsys):
     path = tmp_path / "a.m4a"
     path.write_bytes(files[0])
@@ -158,6 +174,8 @@ def test_cli_stats_prints_each_span(files, tmp_path, capsys):
     stats = json.loads(capsys.readouterr().out)
     assert "msamples_per_second" not in stats
     assert stats["files"] == 1 and stats["dispatches"] >= 1
+    assert stats["assembled_files"] == 1
+    assert stats["assembly_views"] + stats["assembly_runs"] >= 1
     assert set(stats["spans"]) == set(ONE_DEVICE_SPANS)
     for s in stats["spans"].values():
         assert s["seconds"] >= 0 and s["count"] >= 1
