@@ -24,6 +24,62 @@ _INNER_HEADER_LEN = 12  # u32 size + 'alac' + u32 version/flags
 #: Unary run length cap before escape coding (AlacFile.cs:61).
 RICE_THRESHOLD = 8
 
+#: Element tags of a frame (Apple's ALACAudioTypes.h): single channel,
+#: channel pair, coupling channel, low-frequency effects, data stream,
+#: program config, fill, end.
+ID_SCE, ID_CPE, ID_CCE, ID_LFE, ID_DSE, ID_PCE, ID_FIL, ID_END = range(8)
+#: Most channels a stream may have (Apple's kALACMaxChannels).
+MAX_CHANNELS = 8
+#: The elements of a frame of 1-8 channels, in order, each the channels
+#: it holds (1: an SCE, 2: a CPE): Apple's encoder's ``sChannelMaps``
+#: (ALACEncoder.cpp; the LFE of 5.1-7.1 is written as an SCE).  The
+#: decoder writes the elements' channels interleaved in this order.
+CHANNEL_ELEMENTS = {
+    1: (1,),
+    2: (2,),
+    3: (1, 2),
+    4: (1, 2, 1),
+    5: (1, 2, 2),
+    6: (1, 2, 2, 1),
+    7: (1, 2, 2, 1, 1),
+    8: (1, 2, 2, 2, 1),
+}
+#: Core Audio layout tag of each channel count's map (the ``chan``
+#: record after the cookie, ALACMagicCookieDescription.txt): the tag in
+#: the high 16 bits, the channel count in the low ones.
+CHANNEL_LAYOUT_TAGS = {
+    1: (100 << 16) | 1,  # Mono
+    2: (101 << 16) | 2,  # Stereo
+    3: (113 << 16) | 3,  # MPEG_3_0_B: C L R
+    4: (116 << 16) | 4,  # MPEG_4_0_B: C L R Cs
+    5: (120 << 16) | 5,  # MPEG_5_0_D: C L R Ls Rs
+    6: (124 << 16) | 6,  # MPEG_5_1_D: C L R Ls Rs LFE
+    7: (142 << 16) | 7,  # AAC_6_1: C L R Ls Rs Cs LFE
+    8: (127 << 16) | 8,  # MPEG_7_1_B: C Lc Rc L R Ls Rs LFE
+}
+
+
+def channel_layout(payload: bytes) -> tuple[int, int, int] | None:
+    """The ``chan`` record that may follow the cookie in the stsd
+    extension payload (ALACMagicCookieDescription.txt: size 24, 'chan',
+    version/flags, then the layout tag, the channel bitmap and the count
+    of channel descriptions), as (tag, bitmap, descriptions); None where
+    the payload holds none."""
+    pos = _INNER_HEADER_LEN + _PARAM_BLOCK_LEN
+    while pos + 8 <= len(payload):
+        size, kind = struct.unpack_from(">I4s", payload, pos)
+        if size < 8:
+            return None
+        if kind == b"chan" and size >= 24 and pos + 24 <= len(payload):
+            return struct.unpack_from(">III", payload, pos + 12)
+        pos += size
+    return None
+
+
+def chan_record(num_channels: int) -> bytes:
+    """The 24-byte ``chan`` record of ``num_channels``' layout."""
+    return struct.pack(">I4sIIII", 24, b"chan", 0, CHANNEL_LAYOUT_TAGS[num_channels], 0, 0)
+
 
 @dataclasses.dataclass(frozen=True)
 class CodecParams:

@@ -18,7 +18,7 @@ import numpy as np
 from ..errors import UnsupportedFormatError
 from ..ops.bitreader import pack_frames_to_words
 from ..ops.lpc import MAX_ORDER, reverse_coefs
-from .cookie import CodecParams
+from .cookie import MAX_CHANNELS, CodecParams
 from .scalar import BitReader
 
 
@@ -47,6 +47,12 @@ class FrameBatch:
     #: Per-frame parse status: 0 ok, 1 bad channel tag, 2 bad prediction
     #: type (a malformed frame poisons only its lane in lenient mode).
     status: np.ndarray = None
+    #: (B, 3) int32 — the cookie's channel count (0 read as 2), history
+    #: multiplier / 4 and frame length.  Above 2 channels a frame is a
+    #: chain of elements (``cookie.CHANNEL_ELEMENTS``): the fields above
+    #: are its first element's, and the device parses the others from
+    #: these (``ops/cuda/elem_head.py``).
+    chain: np.ndarray = None
 
     @property
     def batch(self) -> int:
@@ -55,6 +61,34 @@ class FrameBatch:
     @property
     def max_samples(self) -> int:
         return int(self.n_samples.max()) if self.batch else 0
+
+
+def chain_columns(channels, hist_mult4, frame_samples) -> np.ndarray:
+    """``FrameBatch.chain`` from each frame's cookie channel count (0
+    read as 2, as ``StreamInfo.num_channels_or_default``), history
+    multiplier / 4 and frame length; raises ``UnsupportedFormatError``
+    above ``cookie.MAX_CHANNELS`` channels."""
+    ch = np.asarray(channels, np.int32)
+    ch = np.where(ch == 0, 2, ch)
+    if (ch > MAX_CHANNELS).any():
+        raise UnsupportedFormatError(
+            f"{int(ch.max())} channels: ALAC has at most {MAX_CHANNELS}")
+    return np.stack([ch, np.broadcast_to(hist_mult4, ch.shape),
+                     np.broadcast_to(frame_samples, ch.shape)], axis=1).astype(np.int32)
+
+
+def check_first_element(channels, is_stereo, status, strict: bool) -> np.ndarray:
+    """Status 1 for a frame of 3 or more channels whose first element is
+    not the single channel its channel map starts with; raises instead
+    under ``strict``."""
+    bad = (channels > 2) & np.asarray(is_stereo, bool) & (np.asarray(status) == 0)
+    if bad.any():
+        if strict:
+            raise UnsupportedFormatError(
+                "a frame of 3 or more channels must start with a single-channel "
+                "element (ALACEncoder.cpp sChannelMaps)")
+        status = np.where(bad, 1, status).astype(np.int32)
+    return status
 
 
 def parse_frame_headers(
@@ -151,6 +185,10 @@ def parse_frame_headers(
     rc = np.stack(
         [reverse_coefs(raw_coefs[:, c], order[:, c]) for c in range(2)], axis=1
     )
+    chain = chain_columns([p.num_channels_cookie for p in params_per_frame],
+                          [p.rice_history_mult // 4 for p in params_per_frame],
+                          [p.max_samples_per_frame for p in params_per_frame])
+    status = check_first_element(chain[:, 0], is_stereo, np.zeros(B, np.int32), True)
     return FrameBatch(
         words=pack_frames_to_words(payloads, max_bytes),
         is_stereo=is_stereo,
@@ -170,5 +208,6 @@ def parse_frame_headers(
         kmod=kmod,
         init_history=init_history,
         kmask=kmask,
-        status=np.zeros(B, dtype=np.int32),
+        status=status,
+        chain=chain,
     )

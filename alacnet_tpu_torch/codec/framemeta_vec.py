@@ -21,7 +21,7 @@ from ..errors import UnsupportedFormatError
 from ..ops.bitreader import WINDOW_PAD, pack_frames_to_words
 from ..ops.lpc import MAX_ORDER
 from .cookie import CodecParams
-from .framemeta import FrameBatch
+from .framemeta import FrameBatch, chain_columns, check_first_element
 
 #: Prefix bytes that always contain the whole header:
 #: 23 + 32 + 16 + 2*(16 + 31*16) = 1095 bits -> 137 bytes.
@@ -54,9 +54,11 @@ def parse_frame_headers_vec(
     (n_samples=0) instead of raising — SURVEY.md §5 failure detection.
     """
     B = len(payloads)
+    params_per_frame = _one_params(params_per_frame)
     if isinstance(params_per_frame, CodecParams):
         plist = None
         p0 = params_per_frame
+        channels = p0.num_channels_cookie
         sample_size = np.full(B, p0.sample_size, np.int32)
         kmod = np.full(B, p0.rice_kmodifier, np.int32)
         init_history = np.full(B, p0.rice_initial_history, np.int32)
@@ -68,6 +70,7 @@ def parse_frame_headers_vec(
             )
     else:
         plist = params_per_frame
+        channels = np.array([p.num_channels_cookie for p in plist], np.int32)
         sample_size = np.array([p.sample_size for p in plist], np.int32)
         kmod = np.array([p.rice_kmodifier for p in plist], np.int32)
         init_history = np.array([p.rice_initial_history for p in plist], np.int32)
@@ -169,6 +172,8 @@ def parse_frame_headers_vec(
         is_compressed, n_samples * (8 * ub_eff) * nch, 0
     )
 
+    chain = chain_columns(np.broadcast_to(channels, (B,)), hist_mult4, max_frames)
+    status = check_first_element(chain[:, 0], is_stereo, status, strict)
     bad = status != 0
     if bad.any():
         n_samples = np.where(bad, 0, n_samples)
@@ -199,10 +204,22 @@ def parse_frame_headers_vec(
         init_history=init_history,
         kmask=((1 << kmod.astype(np.int64)) - 1).astype(np.int32),
         status=status,
+        chain=chain,
     )
 
 
+def _one_params(params_per_frame):
+    """The one ``CodecParams`` object that every frame names (a file's
+    frames, or a pool of one file), else the list as given."""
+    if isinstance(params_per_frame, CodecParams) or not len(params_per_frame):
+        return params_per_frame
+    p0 = params_per_frame[0]
+    one = isinstance(p0, CodecParams) and all(p is p0 for p in params_per_frame)
+    return p0 if one else params_per_frame
+
+
 def _cookie_arrays(B: int, params_per_frame):
+    params_per_frame = _one_params(params_per_frame)
     if isinstance(params_per_frame, CodecParams):
         p = params_per_frame
         return (
@@ -211,6 +228,7 @@ def _cookie_arrays(B: int, params_per_frame):
             np.full(B, p.rice_initial_history, np.int32),
             np.full(B, p.rice_history_mult // 4, np.int32),
             np.full(B, p.max_samples_per_frame, np.int32),
+            np.full(B, p.num_channels_cookie, np.int32),
         )
     pl = params_per_frame
     return (
@@ -219,6 +237,7 @@ def _cookie_arrays(B: int, params_per_frame):
         np.array([p.rice_initial_history for p in pl], np.int32),
         np.array([p.rice_history_mult // 4 for p in pl], np.int32),
         np.array([p.max_samples_per_frame for p in pl], np.int32),
+        np.array([p.num_channels_cookie for p in pl], np.int32),
     )
 
 
@@ -252,12 +271,13 @@ def parse_frame_headers_blob(
     B = len(offsets)
     offsets = np.ascontiguousarray(offsets, np.int64)
     sizes = np.ascontiguousarray(sizes, np.int64)
-    ss, km, ih, hm4, ms = _cookie_arrays(B, params_per_frame)
+    ss, km, ih, hm4, ms, ch = _cookie_arrays(B, params_per_frame)
     bad = ~np.isin(ss, (16, 24))
     if bad.any():
         raise UnsupportedFormatError(
             f"FIXME: unimplemented sample size {ss[bad.argmax()]}"
         )
+    chain = chain_columns(ch, hm4, ms)
     lib = native_tier.get_lib() if native else None
     parsed = (
         None if lib is None else native_tier.parse_headers_native(
@@ -282,7 +302,10 @@ def parse_frame_headers_blob(
             raise UnsupportedFormatError(
                 "FIXME: unhandled prediction type (AlacFile.cs:650,660)"
             )
-        bad = parsed["status"] != 0
+    status = check_first_element(chain[:, 0], parsed["is_stereo"], parsed["status"], strict)
+    if parsed["first_bad"] >= 0 or status is not parsed["status"]:
+        parsed["status"] = status
+        bad = status != 0
         parsed["n_samples"] = np.where(bad, 0, parsed["n_samples"])
         parsed["is_compressed"] = np.where(bad, 0, parsed["is_compressed"])
     if pack_words:
@@ -312,4 +335,5 @@ def parse_frame_headers_blob(
         init_history=parsed["init_history"],
         kmask=parsed["kmask"],
         status=parsed["status"],
+        chain=chain,
     )

@@ -18,7 +18,10 @@ through the batched device pipeline.
 from __future__ import annotations
 
 from ..errors import UnsupportedFormatError
-from .cookie import RICE_THRESHOLD, CodecParams
+from .cookie import (
+    CHANNEL_ELEMENTS, ID_CCE, ID_CPE, ID_DSE, ID_END, ID_FIL, ID_LFE, ID_PCE, ID_SCE,
+    RICE_THRESHOLD, CodecParams,
+)
 
 _U32 = 0xFFFFFFFF
 
@@ -379,6 +382,78 @@ class AlacFrameDecoder:
             "AlacFile.cs:435-437,577)"
         )
 
+    # -- a frame of 3-8 channels: a chain of elements -------------------------
+
+    def decode_frame_channels(self, inbuffer: bytes) -> tuple[int, list[list[int]]]:
+        """Decode one frame of ``numchannels`` channels, any count from 1
+        to 8 -> (samples, one list of final PCM values per channel).
+
+        Walks the frame's elements as Apple's ALACDecoder::Decode does:
+        SCE and LFE elements are one channel, CPE elements two, each
+        decoded by the element decoders above (a two-channel scratch
+        layout), its channels appended in order; DSE and FIL elements are
+        skipped; CCE and PCE elements are refused; END closes the frame.
+        The elements must be those of the channel count's map
+        (``cookie.CHANNEL_ELEMENTS``) and hold one sample count; above two
+        channels END must follow the last.  24-bit values come back
+        sign-extended from their low 24 bits, as the device path gives
+        them.
+        """
+        p = self.params
+        kinds = CHANNEL_ELEMENTS.get(self.numchannels)
+        if kinds is None or p.sample_size not in (16, 24):
+            raise UnsupportedFormatError(
+                f"unsupported stream: {self.numchannels} channels, "
+                f"{p.sample_size}-bit")
+        elem = self._element_decoder()
+        reader = BitReader(inbuffer)
+        chans: list[list[int]] = []
+        n = None
+        k = 0
+        while True:
+            if k == len(kinds) and self.numchannels <= 2:
+                break  # one element, END not required (AlacFile.cs:435)
+            tag = reader.readbits(3)
+            if tag == ID_DSE:
+                _skip_data_stream(reader)
+                continue
+            if tag == ID_FIL:
+                _skip_fill(reader)
+                continue
+            if tag == ID_END:
+                if k != len(kinds):
+                    raise UnsupportedFormatError(
+                        f"frame ends after {k} of {len(kinds)} elements")
+                break
+            if tag in (ID_CCE, ID_PCE) or k == len(kinds):
+                raise UnsupportedFormatError(
+                    f"unsupported element tag {tag} at element {k}")
+            if (tag == ID_CPE) != (kinds[k] == 2) or tag not in (ID_SCE, ID_CPE, ID_LFE):
+                raise UnsupportedFormatError(
+                    f"element {k} has tag {tag}; the {self.numchannels}-channel map "
+                    f"wants {'a CPE' if kinds[k] == 2 else 'an SCE'}")
+            buf = [0] * (p.max_samples_per_frame * 6 + 16)
+            size = p.max_samples_per_frame * elem.bytespersample
+            if kinds[k] == 2:
+                size = elem._decode_stereo(reader, buf, p.max_samples_per_frame, size)
+            else:
+                size = elem._decode_mono(reader, buf, p.max_samples_per_frame, size)
+            m = size // elem.bytespersample
+            if n is not None and m != n:
+                raise UnsupportedFormatError(
+                    f"element {k} holds {m} samples, element 0 {n}")
+            n = m
+            for c in range(kinds[k]):
+                chans.append(_element_channel(buf, m, c, p.sample_size))
+            k += 1
+        return n, chans
+
+    def _element_decoder(self) -> "AlacFrameDecoder":
+        """The element decoders' own instance, in the two-channel layout."""
+        if getattr(self, "_elem", None) is None:
+            self._elem = AlacFrameDecoder(self.params, 2)
+        return self._elem
+
     # -- mono element (AlacFile.cs:437-576) ----------------------------------
 
     def _decode_mono(
@@ -595,6 +670,45 @@ class AlacFrameDecoder:
                 f"FIXME: unimplemented sample size {p.sample_size}"
             )
         return outputsize
+
+
+def _element_channel(buf: list[int], n: int, c: int, sample_size: int) -> list[int]:
+    """Channel ``c`` of an element decoder's two-channel output: the
+    values at 16 bits, the sign-extended 3-byte groups at 24."""
+    if sample_size == 16:
+        return [buf[2 * i + c] for i in range(n)]
+    out = []
+    for i in range(n):
+        b = 6 * i + 3 * c
+        v = buf[b] | (buf[b + 1] << 8) | (buf[b + 2] << 16)
+        out.append(v - (1 << 24) if v & 0x800000 else v)
+    return out
+
+
+def _skip_data_stream(reader: BitReader) -> None:
+    """A DSE's body (ALACDecoder::DataStreamElement): instance tag (4),
+    byte-align flag (1), count (8, plus 8 more where it is 255), the
+    alignment, then the bytes."""
+    reader.readbits(4)
+    align = reader.readbits(1)
+    count = reader.readbits(8)
+    if count == 255:
+        count += reader.readbits(8)
+    if align and reader.acc:
+        reader.idx += 1
+        reader.acc = 0
+    for _ in range(count):
+        reader.readbits(8)
+
+
+def _skip_fill(reader: BitReader) -> None:
+    """A FIL's body (ALACDecoder::FillElement): count (4; where it is 15,
+    8 more bits less one), then the bytes."""
+    count = reader.readbits(4)
+    if count == 15:
+        count += reader.readbits(8) - 1
+    for _ in range(count):
+        reader.readbits(8)
 
 
 def format_samples(bps: int, src: list[int], samcnt: int) -> bytes:

@@ -23,7 +23,7 @@ from typing import BinaryIO
 
 import numpy as np
 
-from ..codec.cookie import CodecParams
+from ..codec.cookie import CodecParams, channel_layout
 from ..errors import HeaderError, MdatPosStatus
 from .bytestream import ByteCursor, fourcc
 from .tables import SampleTables
@@ -467,6 +467,14 @@ def parse(stream: BinaryIO) -> StreamInfo:
         params = CodecParams.from_stsd_payload(parser.codec_data)
     except ValueError as exc:  # short/absent cookie
         raise HeaderError(f"bad ALAC magic cookie ({exc})") from exc
+    layout = channel_layout(parser.codec_data)
+    if layout is not None and parser.num_channels and (layout[0] & 0xFFFF) not in (
+            0, parser.num_channels):
+        # a layout tag's low 16 bits are its channel count (0 for a
+        # layout given by its descriptions or bitmap)
+        raise HeaderError(
+            f"chan layout of {layout[0] & 0xFFFF} channels for a cookie of "
+            f"{parser.num_channels}")
     if not 1 <= params.max_samples_per_frame <= 1 << 20:
         # A lying cookie frame size would dimension every decode buffer
         # (and XLA executable) from an arbitrary u32; the reference's

@@ -14,7 +14,7 @@ from __future__ import annotations
 import struct
 from typing import BinaryIO, Sequence
 
-from ..codec.cookie import CodecParams
+from ..codec.cookie import MAX_CHANNELS, CodecParams, chan_record
 
 
 def _atom(tag: str, payload: bytes) -> bytes:
@@ -26,8 +26,11 @@ def _full_atom(tag: str, payload: bytes, version: int = 0, flags: int = 0) -> by
 
 
 def build_stsd(params: CodecParams) -> bytes:
-    """Sample description atom with the ALAC cookie extension."""
+    """Sample description atom with the ALAC cookie extension (and, for
+    more than two channels, the ``chan`` layout record after it)."""
     ext = params.to_stsd_payload()
+    if 2 < params.num_channels_cookie <= MAX_CHANNELS:
+        ext += chan_record(params.num_channels_cookie)
     # Version-1 QuickTime sound description, fixed 36-byte part
     # (field layout consumed at QTMovieT.cs:448-473).
     fixed = b"".join(

@@ -245,19 +245,72 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The epilogue into an output of C channels a sample (a pool of frames
+// of up to 8 channels, ops/frame_decode._element_chain): the same
+// samples as `epilogue_kernel`, written element by element.  Without
+// `coff` (the frame's first element) each lane writes its whole row:
+// channel 0, channel 1 (zero for a mono lane) and zeros in the others;
+// with it, each lane writes only its element's channel or pair, at
+// channel coff[b], and a lane whose coff is negative writes nothing.
+template <typename Out>
+__global__ void __launch_bounds__(kThreads)
+    epilogue_wide_kernel(Planes p, Columns c, int B, int S, int C,
+                         const int32_t* __restrict__ coff, Out* __restrict__ out) {
+  __shared__ int32_t ta[kTile][kLanes + 1];
+  __shared__ int32_t tb[kTile][kLanes + 1];
+  const int b0 = blockIdx.x * kLanes, s0 = blockIdx.y * kTile;
+  stage(ta, p.out_a, p.a_sm, b0, s0, B, S);
+  stage(tb, p.out_b, p.b_sm, b0, s0, B, S);
+  __syncthreads();
+  const int l = threadIdx.x / kPerLane, b = b0 + l;
+  if (b >= B) return;
+  const int off = coff ? coff[b] : 0;
+  if (off < 0) return;
+  const Lane L = load_lane(c, b);
+  const size_t row = (size_t)b * S;
+#pragma unroll
+  for (int k = 0; k < kGroups; ++k) {
+    const int g = threadIdx.x % kPerLane + kPerLane * k;
+    const int s = s0 + 4 * g;
+    if (s >= S) break;
+    int32_t ea[4], eb[4], ra[4], rb[4];
+    load4(p.extra_a, row, s, S, false, ea);
+    load4(p.extra_b, row, s, S, false, eb);
+    load4(p.raw_a, row, s, S, false, ra);
+    load4(p.raw_b, row, s, S, false, rb);
+#pragma unroll
+    for (int j = 0; j < 4 && s + j < S; ++j) {
+      const int32_t oa = p.out_a ? ta[4 * g + j][l] : 0;
+      const int32_t ob = p.out_b ? tb[4 * g + j][l] : 0;
+      int32_t left, right;
+      sample(L, oa, ob, ea[j], eb[j], ra[j], rb[j], s + j < L.n, left, right);
+      Out* o = out + (row + s + j) * C + off;
+      if (coff == nullptr) {
+        o[0] = (Out)left;
+        o[1] = (Out)right;
+        for (int x = 2; x < C; ++x) o[x] = 0;
+      } else {
+        o[0] = (Out)left;
+        if (L.stereo) o[1] = (Out)right;
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // planes: out_a, out_b, extra_a, extra_b, raw_a, raw_b (any may be null);
 // columns: stereo, comp (bool), sample_size, ub, shift, leftweight, n
-// (int32); out: (B, S, 2) int16 under emit16, else int32.  The caller
-// guarantees ceil(S / 64) <= 65535.
+// (int32); out: (B, S, C) int16 under emit16, else int32; coff: (B,)
+// int32 or null.  C = 2 without coff is `epilogue_kernel`, any other
+// `epilogue_wide_kernel`.  The caller guarantees ceil(S / 64) <= 65535.
 extern "C" int alac_dec_epilogue(const void* out_a, const void* out_b, int a_sm,
                                  int b_sm, const void* extra_a, const void* extra_b,
                                  const void* raw_a, const void* raw_b,
                                  const void* stereo, const void* comp, const void* ss,
                                  const void* ub, const void* shift, const void* lw,
-                                 const void* n, int B, int S, int emit16, void* out,
-                                 void* stream) {
+                                 const void* n, int B, int S, int emit16, int C,
+                                 const void* coff, void* out, void* stream) {
   if (B > 0 && S > 0) {
     const Planes p{(const int32_t*)out_a, (const int32_t*)out_b,
                    (const int32_t*)extra_a, (const int32_t*)extra_b,
@@ -269,7 +322,15 @@ extern "C" int alac_dec_epilogue(const void* out_a, const void* out_b, int a_sm,
                            (uintptr_t)raw_b | (uintptr_t)out;
     const bool vec = S % 4 == 0 && ptrs % 16 == 0;
     const dim3 grid((B + kLanes - 1) / kLanes, (S + kTile - 1) / kTile);
-    if (emit16) {
+    if (C != 2 || coff != nullptr) {
+      if (emit16) {
+        epilogue_wide_kernel<int16_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+            p, c, B, S, C, (const int32_t*)coff, (int16_t*)out);
+      } else {
+        epilogue_wide_kernel<int32_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+            p, c, B, S, C, (const int32_t*)coff, (int32_t*)out);
+      }
+    } else if (emit16) {
       epilogue_kernel<int16_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
           p, c, B, S, vec, (int16_t*)out);
     } else {

@@ -70,11 +70,12 @@ _SIGNATURES = {
     "alac_enc_pred": [_P, _I, _I] + [_P] * 5 + [_I, _I, _P, _P],
     "alac_enc_rice": [_P, _P, _I, _I] + [_P] * 6 + [_P] * 6 + [_P],
     "alac_rice_emit": [_P, _P, _I, _I] + [_P] * 6 + [_P] * 4 + [_P],
-    "alac_dec_epilogue": [_P, _P, _I, _I] + [_P] * 4 + [_P] * 7 + [_I, _I, _I, _P, _P],
+    "alac_dec_epilogue": [_P, _P, _I, _I] + [_P] * 4 + [_P] * 7 + [_I] * 4 + [_P, _P, _P],
     "alac_zero_runs": [_P, _P, _I, _I, _I, _P, _P],
     "alac_pair_merge": [_P] * 4 + [_L] * 4 + [_I] * 3 + [_P] * 9 + [_P],
     "alac_blob_words": [_P, _L, _I, _L, _P, _P],
     "alac_enc_prologue": [_P, _P] + [_I] * 6 + [_P, _P],
+    "alac_elem_head": [_P, _I, _I] + [_P] * 5 + [_I] * 6 + [_P] * 4,
 }
 
 

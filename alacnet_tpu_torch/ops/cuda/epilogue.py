@@ -39,7 +39,8 @@ def extend_raw(v, sample_size):
 def decode_epilogue_plain(
     out_a, out_b, extra_a, extra_b, raw_a, raw_b, is_stereo, is_compressed,
     sample_size, ub, interlacing_shift, interlacing_leftweight, n,
-    num_samples: int, emit16: bool = False,
+    num_samples: int, emit16: bool = False, channels: int = 2, out=None,
+    channel_offset=None,
 ):
     """Plain torch version of :func:`decode_epilogue`."""
     S = num_samples
@@ -89,9 +90,21 @@ def decode_epilogue_plain(
     live = torch.arange(S, dtype=I32, device=dev)[None, :] < n[:, None]
     left = torch.where(live, left, 0)
     right = torch.where(live & is_stereo[:, None], right, 0)
-    out = torch.stack([left, right], dim=-1)
-    if emit16:
-        out = out.to(torch.int16)
+    dtype = torch.int16 if emit16 else I32
+    if channel_offset is None:
+        pair = torch.stack([left, right], dim=-1).to(dtype)
+        if channels == 2:
+            return pair
+        out = torch.zeros((B, S, channels), dtype=dtype, device=dev)
+        out[:, :, :2] = pair
+        return out
+    lanes = torch.nonzero(channel_offset >= 0).reshape(-1)
+    at = channel_offset[lanes].long()[:, None]
+    cols = torch.arange(S, device=dev)[None, :]
+    out[lanes[:, None], cols, at] = left[lanes].to(dtype)
+    pairs = lanes[is_stereo[lanes]]
+    at = channel_offset[pairs].long()[:, None] + 1
+    out[pairs[:, None], cols, at] = right[pairs].to(dtype)
     return out
 
 
@@ -128,20 +141,33 @@ def decode_epilogue(
     num_samples: int,
     emit16: bool = False,
     kernel: str = "auto",
+    channels: int = 2,
+    out: torch.Tensor | None = None,
+    channel_offset: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Final PCM: (B, S, 2) int32, or int16 (the low 16 bits) under
-    ``emit16``.
+    """Final PCM: (B, S, channels) int32, or int16 (the low 16 bits)
+    under ``emit16``.
 
     Compressed lanes take ``out_a``/``out_b``, the others the raw
     fields sign-extended; then the stereo decorrelation, the extra-bits
     merge, the 24-bit wrap; channel 1 is zero for mono lanes and every
     sample at i >= n is zero.  ``None`` planes read as zeros.
+
+    ``channels`` above 2 (a pool of frames of up to 8 channels): each
+    lane's channels 0 and 1 as above, the others zero.
+    ``channel_offset`` ((B,) int32; then ``out`` is that output, which
+    is written into and returned): a later element of such frames, each
+    lane's channel (or pair, for a stereo lane) written at its offset
+    and nothing else; a lane whose offset is negative is left alone.
     """
+    if channel_offset is not None and out is None:
+        raise ValueError("decode_epilogue: channel_offset needs out")
     if not _lib.use_kernel(n, kernel):
         return decode_epilogue_plain(
             out_a, out_b, extra_a, extra_b, raw_a, raw_b, is_stereo,
             is_compressed, sample_size, ub, interlacing_shift,
-            interlacing_leftweight, n, num_samples, emit16,
+            interlacing_leftweight, n, num_samples, emit16, channels, out,
+            channel_offset,
         )
     B = n.shape[0]
     S = num_samples
@@ -160,7 +186,16 @@ def decode_epilogue(
     for name, t in zip(("sample_size", "ub", "interlacing_shift",
                         "interlacing_leftweight", "n"), cols):
         _lib.check_i32(name, t, (B,), dev)
-    out = torch.empty((B, S, 2), dtype=torch.int16 if emit16 else I32, device=dev)
+    dtype = torch.int16 if emit16 else I32
+    if channels < 2:
+        raise ValueError(f"decode_epilogue: channels={channels}")
+    if channel_offset is None:
+        out = torch.empty((B, S, channels), dtype=dtype, device=dev)
+    else:
+        _lib.check_i32("channel_offset", channel_offset, (B,), dev)
+        if out.dtype != dtype or out.device != dev or tuple(out.shape) != (B, S, channels) \
+                or not out.is_contiguous():
+            raise ValueError(f"out: expected a contiguous ({B}, {S}, {channels}) {dtype}")
     if B and S:
         _lib.launch(
             "alac_dec_epilogue", dev,
@@ -168,6 +203,7 @@ def decode_epilogue(
             int(a_sm), int(b_sm),
             *(None if x is None else x.data_ptr() for x in lane_major),
             is_stereo.data_ptr(), is_compressed.data_ptr(),
-            *(t.data_ptr() for t in cols), B, S, int(emit16), out.data_ptr(),
+            *(t.data_ptr() for t in cols), B, S, int(emit16), channels,
+            None if channel_offset is None else channel_offset.data_ptr(), out.data_ptr(),
         )
     return out

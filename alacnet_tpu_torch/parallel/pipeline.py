@@ -24,6 +24,7 @@ from ..codec.framemeta_vec import (
     parse_frame_headers_blob, parse_frame_headers_vec, words_width,
 )
 from ..config import DecodeConfig, resolve
+from ..errors import UnsupportedFormatError
 from ..ops.bitreader import WINDOW_PAD, pack_frames_to_words
 from ..ops.cuda.pack_rows import (
     blob_words, blob_words_uploader, host_row_params, pack_rows,
@@ -92,7 +93,8 @@ class StagedBatch(NamedTuple):
     #: (2, B) int32 per-lane (word offset, byte count) for ``pack_rows``.
     rows: np.ndarray | None
     W: int
-    #: (B, 83) int32 ``FrameMetaArrays.pack_host`` matrix.
+    #: (B, 83) int32 ``FrameMetaArrays.pack_host`` matrix ((B, 87) with
+    #: the chain columns of frames of 3-8 channels).
     meta: np.ndarray
     emit16: bool
     orig_b: int
@@ -178,7 +180,9 @@ def dispatch_frame_batch(
 def decode_frame_batch(
     fb: FrameBatch, max_samples: int, config: DecodeConfig
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Decode a parsed FrameBatch -> (samples (B, S, 2), n (B,))."""
+    """Decode a parsed FrameBatch -> (samples (B, S, C), n (B,)): C is 2
+    or the batch's widest frames' channel count, and n is -status where
+    the element chain refused a frame of 3-8 channels."""
     out, n, orig_b = dispatch_frame_batch(fb, max_samples, config)
     return d2h_async(out[:orig_b], n[:orig_b])()
 
@@ -347,9 +351,13 @@ def decode_blob(
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Decode frames addressed as (offset, size) into a raw byte blob.
 
-    Returns (samples (F, S, 2), n (F,), status (F,)) in the frames'
-    original order, where ``status`` flags per-frame parse failures in
-    lenient mode.  ``config`` (default ``DecodeConfig()``) names the
+    Returns (samples (F, S, C), n (F,), status (F,)) in the frames'
+    original order, where C is 2 or the widest frame's channel count
+    and ``status`` flags per-frame parse failures in
+    lenient mode: the host parse's, and the element chain's of frames of
+    3-8 channels (``ops/frame_decode._element_chain``), read back with
+    the samples (strict mode raises ``UnsupportedFormatError`` for
+    either).  ``config`` (default ``DecodeConfig()``) names the
     device and kernel route; ``batch_limit``/``strict`` default to its
     fields.
 
@@ -357,7 +365,8 @@ def decode_blob(
     called with each batch's *device* tensors (padded, planner order)
     instead of copying PCM to the host.  With a sink the returned
     samples/n are empty; ``status`` is still per-frame in original
-    order.
+    order, the host parse's alone (the sink's n holds the element
+    chain's, as -status).
 
     ``mesh`` (``parallel/mesh.Mesh``; overrides ``config.device``):
     every batch's lanes split over the mesh's shards, each decoded on
@@ -394,8 +403,16 @@ def decode_blob(
             return
         with trace_span(RESULT_WAIT_SPAN):
             out, n = wait()
-        if (n < 0).any():
-            raise AssertionError("decode returned a negative sample count")
+        refused = n < 0  # the element chain's status, as -status
+        if refused.any():
+            if config.strict:
+                raise UnsupportedFormatError(
+                    f"{int(refused.sum())} frame(s) of 3-8 channels refused by the "
+                    f"element chain (status {int(-n[refused][0])}: 1 a wrong or "
+                    "missing element tag or sample count, 2 a prediction type "
+                    "other than 0)")
+            status = np.where(refused[: len(status)], -n[: len(status)], status)
+            n = np.where(refused, 0, n)
         GLOBAL_STATS.record(
             frames=frames, samples=int(n.sum()), coded_bytes=nbytes
         )
@@ -432,7 +449,18 @@ def decode_blob(
                 np.zeros(0, np.int32),
                 status,
             )
-        return np.concatenate(outs)[inv], np.concatenate(ns)[inv], status
+        return _concat_channels(outs)[inv], np.concatenate(ns)[inv], status
+
+
+def _concat_channels(outs: list) -> np.ndarray:
+    """The batches' (B, S, C) samples as one array: a batch of frames of
+    3-8 channels has the channels of its widest, so in a pool that mixes
+    them with narrower ones each batch is widened (zeros) to the widest."""
+    C = max(o.shape[2] for o in outs)
+    if any(o.shape[2] != C for o in outs):
+        outs = [o if o.shape[2] == C else np.pad(o, ((0, 0), (0, 0), (0, C - o.shape[2])))
+                for o in outs]
+    return np.concatenate(outs)
 
 
 def _fetch_sharded(out: Sharded, n: Sharded, orig_b: int):
@@ -450,7 +478,8 @@ def decode_payloads(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Parse + decode coded frame payloads in bucketed device batches.
 
-    Returns (samples (F, S, 2), n (F,) int32) across all frames.
+    Returns (samples (F, S, C), n (F,) int32) across all frames, C as
+    for :func:`decode_blob`.
     """
     config = resolve(config)
     outs, ns = [], []
@@ -463,4 +492,4 @@ def decode_payloads(
         ns.append(n)
     if not outs:
         return np.zeros((0, max_samples, 2), np.int32), np.zeros(0, np.int32)
-    return np.concatenate(outs), np.concatenate(ns)
+    return _concat_channels(outs), np.concatenate(ns)

@@ -23,6 +23,9 @@ The decode's spans (``parallel/pipeline.py``, ``parallel/mesh.py``,
   * ``alac.host.h2d`` — host staging and uploads, the blob's byteswap;
   * ``alac.host.enqueue`` — one batch's dispatch and the issue of its
     copy back; ``alac.host.enqueue.shard<i>`` — mesh shard i's part;
+  * ``alac.host.element_chain`` — inside the enqueue, the launches for
+    the later elements of frames of 3-8 channels: each element's header
+    kernel and the launches it feeds (:data:`ELEMENT_CHAIN_SPAN`);
   * ``alac.device.result_wait`` — blocked on a batch's copy back
     (:data:`RESULT_WAIT_SPAN`);
   * ``alac.host.unsort`` — the PCM put back in the frames' order;
@@ -46,6 +49,8 @@ logger = logging.getLogger("alacnet_tpu_torch")
 PARSE_SPAN = "alac.host.parse"
 #: The span whose seconds are ``DecodeStats.result_wait_seconds``.
 RESULT_WAIT_SPAN = "alac.device.result_wait"
+#: The span of the element chain's launches (``ops/frame_decode``).
+ELEMENT_CHAIN_SPAN = "alac.host.element_chain"
 
 
 @dataclasses.dataclass
@@ -63,6 +68,13 @@ class DecodeStats:
     assembled_files: int = 0
     assembly_views: int = 0
     assembly_runs: int = 0
+    #: Elements decoded (one a frame of one or two channels, the map's
+    #: count for 3-8), chained element passes launched (one a later
+    #: element of a batch's widest frame) and frames of 3-8 channels
+    #: (:meth:`record_elements`, at enqueue).
+    elements: int = 0
+    element_passes: int = 0
+    multichannel_frames: int = 0
     #: Wall seconds and entries of every :func:`trace_span`, by name.
     span_seconds: dict = dataclasses.field(default_factory=dict)
     span_counts: dict = dataclasses.field(default_factory=dict)
@@ -84,6 +96,14 @@ class DecodeStats:
             self.assembled_files += 1
             self.assembly_views += int(view)
             self.assembly_runs += runs
+
+    def record_elements(self, elements: int, passes: int = 0,
+                        multichannel_frames: int = 0) -> None:
+        """Count elements decoded, chained passes and multichannel frames."""
+        with self._lock:
+            self.elements += elements
+            self.element_passes += passes
+            self.multichannel_frames += multichannel_frames
 
     def record_span(self, name: str, seconds: float) -> None:
         with self._lock:
@@ -112,6 +132,9 @@ class DecodeStats:
                 "assembled_files": self.assembled_files,
                 "assembly_views": self.assembly_views,
                 "assembly_runs": self.assembly_runs,
+                "elements": self.elements,
+                "element_passes": self.element_passes,
+                "multichannel_frames": self.multichannel_frames,
                 "host_seconds": round(self.host_seconds, 6),
                 "result_wait_seconds": round(self.result_wait_seconds, 6),
                 "spans": {
@@ -124,6 +147,7 @@ class DecodeStats:
         with self._lock:
             self.frames = self.samples = self.coded_bytes = self.dispatches = 0
             self.assembled_files = self.assembly_views = self.assembly_runs = 0
+            self.elements = self.element_passes = self.multichannel_frames = 0
             self.span_seconds.clear()
             self.span_counts.clear()
 

@@ -8,7 +8,7 @@ where two or more are visible), the CUDA toolkit (``nvcc``) and this
 repository's checkout; it imports nothing of JAX.  Phases, each fatal
 on failure, each printing its seconds:
 
-1. build — the eleven CUDA kernels (``alacnet_tpu_torch/csrc/*.cu``, one
+1. build — the twelve CUDA kernels (``alacnet_tpu_torch/csrc/*.cu``, one
    nvcc process per source, all at once, then one link) and the native
    host tier, from the checkout's sources, into
    ``alacnet_tpu_torch/_build/``; prints the build times and the
@@ -224,12 +224,30 @@ on failure, each printing its seconds:
    each of ``ROUTE_VARS`` (``ALAC_ENC_PAIR=0``, ``ALAC_ENC_QUAD=1``,
    ``ALAC_ENC_DEVICE_PACK=1`` with either ``ALAC_ENC_PACK_IMPL``), its
    bytes against ``encode_expected.json`` and the packer that ran
-   against the variable's.  Before phase 1 the script removes every
-   ``ALAC_*`` variable the port reads (``PORT_ENV``) and prints the ones
-   it removed, so phases 1-10 run the defaults.
+   against the variable's;
+12. multichannel — ``decode_streams`` of one 5.1 track of the
+   benchmark's ``surround51`` library (``MC_SEED``, ``MC_TRACK``: 24-bit
+   48 kHz, frames of 4,096 samples, one extra-bits byte, each frame SCE,
+   CPE, CPE, SCE, END), after a warm-up, with the launch counts set to 0
+   just before and every ``elem_head``, ``bulk_bits`` and
+   ``decode_epilogue`` call recorded: the PCM against the source, sample
+   for sample; per frame batch four ``elem_head`` launches (three element
+   headers and END) and four of the C-channel epilogue (``channels=6``),
+   three at a ``channel_offset``; then each recorded call through the
+   kernel and, the first of each group and more within
+   ``PLAIN_BUDGET_S``, the plain version (``elem_head_plain``,
+   ``decode_epilogue_plain``, ``bulk_bits``'), bit for bit, a later
+   element's epilogue writing into an output of its own filled with
+   ``OUT_FILL``; ``elem_head`` and the epilogue timed on the card alone
+   too.  ``python3 chip_smoke.py --multichannel`` runs the build and this
+   phase alone.  Before phase 1 the script removes every ``ALAC_*``
+   variable the port reads (``PORT_ENV``) and prints the ones it
+   removed, so phases 1-12 run the defaults.
 
-In the ``kernels`` line, ``ms`` is the kernel's time summed over every
-call the path made (mean of 5 launches each from the host, CUDA
+In the ``kernels`` line (``elem_head``'s entries from phase 12; every
+kernel's ``multichannel_launches``, ``multichannel_max_abs_err`` and
+``multichannel_plain_calls`` from it), ``ms`` is the kernel's time
+summed over every call the path made (mean of 5 launches each from the host, CUDA
 events around them: the wrapper's host work counts where it outlasts
 the kernel; ``device_ms``, where present, is the time on the card
 alone, from CUDA-graph replays), ``plain_ms`` the plain
@@ -291,6 +309,8 @@ KERNELS = {
     "pair_merge": "alacnet_tpu/ops/encode.py:324",
     "blob_words": "alacnet_tpu/ops/pallas/pack_rows.py:110",
     "enc_prologue": "alacnet_tpu/ops/encode.py:465",
+    # no TPU kernel: the JAX package decodes no frame of more than two channels
+    "elem_head": "none",
 }
 #: The path whose run each kernel's launch count comes from.
 KERNEL_PATHS = {
@@ -299,6 +319,7 @@ KERNEL_PATHS = {
     **dict.fromkeys(("enc_prologue", "enc_pred", "enc_rice", "zero_runs", "pair_merge"),
                     "encode_files"),
     "rice_emit": "symbol-plane route",
+    "elem_head": "decode_streams of a 5.1 track",
 }
 DECODE_KERNELS = ("blob_words", "pack_rows", "rice_lpc", "bulk_bits", "dec_epilogue")
 ENCODE_KERNELS = ("enc_prologue", "enc_pred", "enc_rice", "zero_runs", "pair_merge")
@@ -338,6 +359,7 @@ INT_OPS = {
     "pair_merge": {"pair": 40, "quad": 43},
     "blob_words": {"blob_word": 11},
     "enc_prologue": {"frame_sample": 8},
+    "elem_head": {"field": 12, "pass": 100},
 }
 #: Rounds of (kernel, library call) in turns per call where a library
 #: call computes the kernel's function (``pack_rows``: ``torch.take``),
@@ -346,7 +368,7 @@ ALT_ROUNDS = 7
 #: Kernels whose calls are also timed on the card alone (``device_ms``):
 #: tens of microseconds of kernel, under the wrapper's host work.
 DEVICE_TIMED = ("pack_rows", "bulk_bits", "dec_epilogue", "zero_runs", "pair_merge",
-                "blob_words", "enc_prologue")
+                "blob_words", "enc_prologue", "elem_head")
 #: Frames per window and per resumable chunk of phase 7's checks.
 API_WINDOW = 4
 RESUME_FRAMES = 5
@@ -465,11 +487,19 @@ def record_calls(names, data, config):
     wrapped; return {kernel: [(args, kwargs), ...]} as called, and each
     call's group: (its place among the batch's calls of that kernel,
     the batch's formats)."""
+    _, calls, groups, _ = record_streams(pooled_streams(names, data), config, CALL_SITES)
+    return calls, groups
+
+
+def record_streams(streams, config, sites):
+    """``decode_streams(streams)`` once with each call site of ``sites``
+    wrapped -> (its results, the calls and groups as ``record_calls``
+    gives them, the frame batches dispatched)."""
     import alacnet_tpu_torch
 
-    calls = {k: [] for k in CALL_SITES}
-    groups = {k: [] for k in CALL_SITES}
-    batch = {"formats": None, "placed": {}}  # the blob's words come before any batch
+    calls = {k: [] for k in sites}
+    groups = {k: [] for k in sites}
+    batch = {"formats": None, "placed": {}, "batches": 0}  # the blob's words come first
 
     def make(key, orig):
         def rec(*args, **kwargs):
@@ -482,13 +512,13 @@ def record_calls(names, data, config):
 
     def per_batch(key, orig):
         def run(fb, *args, **kwargs):
-            batch.update(formats=batch_formats(fb), placed={})
+            batch.update(formats=batch_formats(fb), placed={}, batches=batch["batches"] + 1)
             return orig(fb, *args, **kwargs)
         return run
 
-    with wrapped(CALL_SITES, make), wrapped(DISPATCH_SITE, per_batch):
-        alacnet_tpu_torch.decode_streams(pooled_streams(names, data), config=config)
-    return calls, groups
+    with wrapped(sites, make), wrapped(DISPATCH_SITE, per_batch):
+        results = alacnet_tpu_torch.decode_streams(streams, config=config)
+    return results, calls, groups, batch["batches"]
 
 
 def _isum(t) -> int:
@@ -531,7 +561,7 @@ def call_work(name: str, args, kwargs, got) -> tuple[int, int]:
     if name == "dec_epilogue":
         # the planes each live sample needs: compressed lanes their out
         # planes, raw lanes their raw ones, extra-bits lanes theirs; the
-        # full (B, S, 2) output; 2 bool and 5 int32 columns
+        # output written; 2 bool and 5 int32 columns
         out_a, out_b, extra_a, _, raw_a, _, st, comp, ss, ub, _, _, n, S = args[:14]
         B = n.shape[0]
         st, comp = st.to(torch.int64), comp.to(torch.int64)
@@ -540,9 +570,36 @@ def call_work(name: str, args, kwargs, got) -> tuple[int, int]:
         extra = comp * ((ub > 0) & (ss > 16)).to(torch.int64) * have[2] * (1 + st)
         planes = (comp * (have[0] + have[1] * st) + (1 - comp) * have[3] * (1 + st)
                   + extra)
-        out_bytes = B * S * 2 * (2 if kwargs.get("emit16") else 4)
+        # (a later element of C-channel frames: its channels at each
+        # lane's offset, 1 or 2 a lane)
+        width = 2 if kwargs.get("emit16") else 4
+        coff = kwargs.get("channel_offset")
+        out_bytes = (B * S * kwargs.get("channels", 2) * width if coff is None
+                     else width * _isum(nn * (coff >= 0) * (1 + st)))
         live = _isum(nn)
         return 4 * _isum(nn * planes) + out_bytes + 22 * B, ops["sample"] * live
+    if name == "elem_head":
+        # each lane of the pass: its columns read (element 0's, the last
+        # element's, two end bits, the status: 72 B); on an element's
+        # pass its header's bits read (23, then 16 of shift and weight,
+        # 16 a channel and 16 a coefficient) and 92 rows and 4 flags
+        # written, on the END pass the count (4 B)
+        from alacnet_tpu_torch.ops.cuda import elem_head
+
+        base, k = args[1], args[6]
+        nel = elem_head.element_count(base[elem_head.COL_ELEMENTS].to(torch.int64))
+        lanes = _isum(nel >= k)
+        rows = got[0]
+        if rows is None:
+            return 76 * lanes, ops["pass"] * lanes
+        head = rows[elem_head.ROW_COFF] >= 0
+        comp = rows[1].to(torch.int64) * head
+        nch = 1 + rows[0].to(torch.int64)
+        taps = rows[13].to(torch.int64) + rows[14].to(torch.int64) * (nch - 1)
+        head_bits = _isum(23 * head + comp * (16 + 16 * nch + 16 * taps))
+        fields = _isum(6 * head + comp * (4 * nch + taps))
+        return (head_bits // 8 + (72 + 92 * 4 + 4) * lanes,
+                ops["field"] * fields + ops["pass"] * lanes)
     if name == "zero_runs":
         # residuals read below each lane's n, the runs written in full
         errs_sb, n = args[:2]
@@ -685,11 +742,32 @@ def max_abs_err(name: str, got, want) -> int:
     want = want if isinstance(want, tuple) else (want,)
     err = 0
     for g, w in zip(got, want):
+        if g is None or w is None:  # an output the call does not make
+            if (g is None) != (w is None):
+                raise RuntimeError(f"{name}: an output is None on one side only")
+            continue
         if g.shape != w.shape or g.dtype != w.dtype:
             raise RuntimeError(f"{name}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
         if g.numel():
             err = max(err, (g.to(torch.int64) - w.to(torch.int64)).abs().max().item())
     return err
+
+
+#: What a compared run of the C-channel epilogue starts its ``out`` from:
+#: a value no decode writes there, so that a channel the kernel leaves
+#: unwritten differs from the plain version's.
+OUT_FILL = -21846
+
+
+def own_out(kw: dict) -> dict:
+    """``kw`` with an output of its own where the call writes into one
+    (a later element's epilogue: ``out``), filled with ``OUT_FILL``: two
+    runs of one recorded call then write apart."""
+    if kw.get("out") is None:
+        return kw
+    import torch
+
+    return {**kw, "out": torch.full_like(kw["out"], OUT_FILL)}
 
 
 def compare_kernels(calls, fns, groups, budget_s) -> dict:
@@ -717,7 +795,7 @@ def compare_kernels(calls, fns, groups, budget_s) -> dict:
         fn(*args, **{**kw, "kernel": "torch"})
         torch.cuda.synchronize()
         for idx, (args, kw) in enumerate(recorded):
-            got = fn(*args, **{**kw, "kernel": "cuda"})
+            got = fn(*args, **{**own_out(kw), "kernel": "cuda"})
             t = time_against_library(
                 lambda: fn(*args, **{**kw, "kernel": "cuda"}), library_call(name, args),
                 device=name in DEVICE_TIMED,
@@ -727,7 +805,7 @@ def compare_kernels(calls, fns, groups, budget_s) -> dict:
             for key, v in t.items():
                 lib_times[key] = lib_times.get(key, 0.0) + v
             got = got if isinstance(got, tuple) else (got,)
-            shapes.append(list(got[0].shape))
+            shapes.append(list(next(g for g in got if g is not None).shape))
             b, o = call_work(name, args, kw, got)
             nbytes, nops = nbytes + b, nops + o
             iface_bytes += interface_bytes(name, args, b)
@@ -738,9 +816,8 @@ def compare_kernels(calls, fns, groups, budget_s) -> dict:
                 continue
             seen.add(group)
             plain = []
-            plain_ms += cuda_ms(
-                lambda: plain.append(fn(*args, **{**kw, "kernel": "torch"})), 1
-            )
+            plain_kw = {**own_out(kw), "kernel": "torch"}
+            plain_ms += cuda_ms(lambda: plain.append(fn(*args, **plain_kw)), 1)
             ms += k_ms
             compared.append(idx)
             err = max(err, max_abs_err(name, got, plain[0]))
@@ -1180,6 +1257,8 @@ def profile_by_site(run, site_map: dict, per: str) -> dict:
         if ev.name.startswith("site:"):  # the ranges also show on the device
             if on_cpu:
                 calls[ev.name[5:]] = calls.get(ev.name[5:], 0) + 1
+        elif getattr(ev, "is_user_annotation", False) or ev.name.startswith("alac."):
+            continue  # the program's spans: ranges on the host, annotations on the device
         elif on_cpu and ev.name.startswith("cu"):  # cudaLaunchKernel, cudaMemcpyAsync, ...
             runtime.setdefault(ev.id, ev)
         elif "CUDA" in str(ev.device_type):
@@ -1671,8 +1750,8 @@ def run_epilogue_arms(card: str) -> dict:
     from alacnet_tpu_torch.ops.cuda.epilogue import decode_epilogue_plain
 
     def plain(key, orig):
-        def run(*args, emit16=False, kernel="auto"):
-            return decode_epilogue_plain(*args, emit16=emit16)
+        def run(*args, kernel="auto", **kwargs):
+            return decode_epilogue_plain(*args, **kwargs)
         return run
 
     arms = {"kernel": contextlib.nullcontext, "plain": lambda: wrapped(EPILOGUE_SITE, plain)}
@@ -2900,6 +2979,100 @@ def run_phase11(decoded, enc_expected, card: str) -> dict:
             "times": times}
 
 
+#: Phase 12's 5.1 track: track MC_TRACK of the ``surround51``
+#: configuration's library for MC_SEED (``benchmark/inputs/surround.py``).
+MC_SEED, MC_TRACK = 2**31 + 977, 0
+#: The kernels phase 12 holds to their plain versions, each call recorded
+#: where the decode calls it (the rice_lpc calls of the chain are left
+#: out: the plain rice_lpc takes ~11 s a call on the H100).
+MC_CALL_SITES = {
+    "elem_head": ("alacnet_tpu_torch.ops.cuda.elem_head", "elem_head"),
+    "bulk_bits": CALL_SITES["bulk_bits"],
+    "dec_epilogue": CALL_SITES["dec_epilogue"],
+}
+
+
+def surround_track():
+    """(the `.m4a` bytes, the PCM) of phase 12's 5.1 track: 24-bit 48 kHz,
+    frames of 4,096 samples, one extra-bits byte, each frame SCE, CPE,
+    CPE, SCE, END (the benchmark's frozen encoder)."""
+    from benchmark.inputs import surround
+
+    config = json.loads((ROOT / "benchmark" / "configs" / "surround51.json").read_text())
+    lib = surround.make_library(config, MC_SEED)
+    coded = surround.code(lib)
+    return surround.m4a_of(lib, coded, MC_TRACK), lib.track_pcm(MC_TRACK)
+
+
+def run_multichannel(card: str) -> dict:
+    """Phase 12: ``decode_streams`` of one 5.1 track on the card with the
+    launch counts set to 0 just before and each ``elem_head``,
+    ``bulk_bits`` and ``decode_epilogue`` call recorded; the PCM against
+    the source; the launches against the batches (each batch: the header
+    kernel three times and once for END, the C-channel epilogue four
+    times, three of them at a channel offset); then each recorded call
+    through the kernel and, by ``compare_kernels``' rule, the plain
+    version, bit for bit (a later element's epilogue into an output of
+    its own, filled with ``OUT_FILL``), with the kernel's times and
+    bound."""
+    import torch
+
+    import alacnet_tpu_torch
+    from alacnet_tpu_torch.ops.cuda import _lib, elem_head
+    from alacnet_tpu_torch.utils.observability import GLOBAL_STATS
+
+    t = time.perf_counter()
+    data, pcm = surround_track()
+    make_s = time.perf_counter() - t
+    config = alacnet_tpu_torch.DecodeConfig(device="cuda")
+    alacnet_tpu_torch.decode_streams([io.BytesIO(data)], config=config)  # warm-up
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    GLOBAL_STATS.reset()
+    results, calls, groups, batches = record_streams([io.BytesIO(data)], config,
+                                                     MC_CALL_SITES)
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    stats = GLOBAL_STATS.snapshot()
+    got = results[0].pcm
+    if got.shape != pcm.shape or not np.array_equal(got, pcm):
+        raise RuntimeError("multichannel: the 5.1 track's PCM differs from the source")
+    offsets = sum(kw.get("channel_offset") is not None for _, kw in calls["dec_epilogue"])
+    want = {"elem_head": 4 * batches, "dec_epilogue": 4 * batches}
+    if {k: launches.get(k, 0) for k in want} != want or offsets != 3 * batches \
+            or any(kw.get("channels") != 6 for _, kw in calls["dec_epilogue"]) \
+            or stats["element_passes"] != 3 * batches:
+        raise RuntimeError(f"multichannel: launches {launches}, {offsets} epilogues at an "
+                           f"offset, {stats['element_passes']} element passes over "
+                           f"{batches} batches")
+    del results
+    rec = {"frames": int(stats["multichannel_frames"]), "samples": int(pcm.shape[0]),
+           "batches": batches, "launches": launches, "make_s": make_s,
+           "elements": int(stats["elements"]), "element_passes": int(stats["element_passes"]),
+           "card": card}
+    emit({"multichannel": rec})
+    fns = {**decode_fns(), "elem_head": elem_head.elem_head}
+    rec["checks"] = compare_kernels(calls, fns, groups, PLAIN_BUDGET_S)
+    return rec
+
+
+def multichannel_worker() -> int:
+    """``--multichannel``: the build, then phase 12 alone."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from alacnet_tpu_torch.ops.cuda import _lib
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    clear_port_env()
+    _lib.get_lib()
+    t = time.perf_counter()
+    run_multichannel(nvidia_smi())
+    emit({"phase": 12, "seconds": time.perf_counter() - t})
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2997,6 +3170,12 @@ def main() -> int:
     p11 = run_phase11(decoded, enc_expected, smi)
     del decoded
     emit({"phase": 11, "seconds": time.perf_counter() - t, **p11["times"]})
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    mc = run_multichannel(smi)
+    checks["elem_head"] = mc["checks"]["elem_head"]
+    emit({"phase": 12, "seconds": time.perf_counter() - t})
     mesh_launches = {**mesh["decode"]["two_shards"]["launches"], **mesh["encode"]["launches"]}
     shard_checks = mesh["shard_checks"]
     cards_checks = mesh["cards_checks"] or {}
@@ -3005,7 +3184,9 @@ def main() -> int:
     soak_checks = p11["soak"]["kernel_checks"]
     mono_checks = bench["mono"]["checks"]
 
-    launches = {**e2e["launches"], **enc["launches"], **route["launches"]}
+    launches = {**e2e["launches"], **enc["launches"], **route["launches"],
+                "elem_head": mc["launches"]["elem_head"]}
+    mc_checks = mc["checks"]
     kernels = [
         {"name": k, "route": "cuda", "source": f"alacnet_tpu_torch/csrc/{k}.cu",
          "replaces": KERNELS[k], "path": KERNEL_PATHS[k], "launches": launches[k],
@@ -3030,6 +3211,11 @@ def main() -> int:
          "soak_max_abs_err": soak_checks[k]["max_abs_err"] if k in soak_checks else None,
          "soak_plain_calls": (len(soak_checks[k]["compared_calls"])
                               if k in soak_checks else None),
+         "multichannel_launches": mc["launches"].get(k, 0),
+         "multichannel_max_abs_err": (mc_checks[k]["max_abs_err"]
+                                      if k in mc_checks else None),
+         "multichannel_plain_calls": (len(mc_checks[k]["compared_calls"])
+                                      if k in mc_checks else None),
          "max_abs_err": checks[k]["max_abs_err"], "calls": checks[k]["calls"],
          "plain_calls": len(checks[k]["compared_calls"]),
          "ms": checks[k]["ms_all_calls"], "device_ms": checks[k].get("device_ms"),
@@ -3056,4 +3242,6 @@ if __name__ == "__main__":
         sys.exit(encode_profile_worker())
     if sys.argv[1:2] == ["--decode-profile"]:
         sys.exit(decode_profile_worker())
+    if sys.argv[1:2] == ["--multichannel"]:
+        sys.exit(multichannel_worker())
     sys.exit(main())

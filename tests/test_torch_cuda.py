@@ -2056,3 +2056,277 @@ def test_blob_words_and_prologue_refused_launch_raise_without_fallback(cuda, mon
                                torch.from_numpy(stereo).to(cuda), n, lp, rp, 64,
                                max_order=6, lw=1, sh=1)
     torch.cuda.synchronize()
+
+
+# -- frames of 3-8 channels: the element chain ---------------------------------
+#
+# The cases, shared with tests/test_torch_multichannel.py (the CPU
+# side): a frame of C channels is its channel map's elements
+# (``cookie.CHANNEL_ELEMENTS``), each written by the port's host encoder's
+# own element writers into one bit stream, then END.
+
+MC_S = 256
+
+
+def mc_pcm(n, C, bits, seed):
+    """(n, C) int32: a partial a channel plus noise; the last channel of
+    a 5.1-8 map (the LFE) a low partial only."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)[:, None]
+    amp = 1 << (bits - 3)
+    x = np.sin(t * (0.004 + 0.0023 * np.arange(C)) + rng.uniform(0, 6, C)) * amp
+    x = x + rng.integers(-(1 << (bits - 10)), 1 << (bits - 10), (n, C))
+    if C >= 6:
+        x[:, -1] = np.sin(t[:, 0] * 0.001) * amp
+    return x.astype(np.int32)
+
+
+def mc_frame(pcm, params, orders=8, ub=0, raw=(), tags=None, aux=None, end=True,
+             counts=None):
+    """One frame of ``pcm`` ((n, C) int32) as its map's elements.
+
+    ``orders``: one predictor order, or one an element; ``raw``: the
+    elements written uncompressed (escape); ``tags``: the tag of each
+    element in place of the map's; ``aux``: {element: [(tag, body)]}
+    DSE/FIL-style elements written before it (``len(kinds)``: before
+    END), each body a list of (value, width) fields, width None for
+    zeros up to the next byte; ``end``: write the END tag; ``counts``:
+    each element's sample count written in its header in place of n."""
+    from alacnet_tpu_torch.codec.bitwriter import BitWriter
+    from alacnet_tpu_torch.codec.cookie import CHANNEL_ELEMENTS, ID_CPE, ID_END, ID_SCE
+    from alacnet_tpu_torch.codec.encoder import AlacEncoder, EncoderConfig
+
+    n, C = pcm.shape
+    kinds = CHANNEL_ELEMENTS[C]
+    w = BitWriter()
+    instance = {1: 0, 2: 0}
+    c = 0
+    aux = aux or {}
+    for k, kind in enumerate(kinds):
+        _mc_aux(w, aux.get(k, ()))
+        order = orders if np.isscalar(orders) else orders[k]
+        enc = AlacEncoder(params, EncoderConfig(order=order, uncompressed_bytes=ub))
+        tag = (ID_CPE if kind == 2 else ID_SCE) if tags is None else tags[k]
+        w.write(tag, 3)
+        w.write(instance[kind], 4)
+        instance[kind] += 1
+        w.write(0, 12)
+        count = n if counts is None else counts[k]
+        hassize = int(count != params.max_samples_per_frame)
+        is_raw = k in raw
+        w.write(hassize, 1)
+        w.write(0 if is_raw else ub, 2)
+        w.write(int(is_raw), 1)
+        if hassize:
+            w.write(count, 32)
+        chans = pcm[:, c : c + kind]
+        if is_raw:
+            enc._write_uncompressed(w, chans)
+        elif kind == 1:
+            enc._write_mono_compressed(w, chans[:, 0], ub)
+        else:
+            enc._write_stereo_compressed(w, chans, ub)
+        c += kind
+    _mc_aux(w, aux.get(len(kinds), ()))
+    if end:
+        w.write(ID_END, 3)
+    return w.getvalue()
+
+
+def _mc_aux(w, elements):
+    for tag, body in elements:
+        w.write(tag, 3)
+        for v, width in body:
+            w.write(v, (8 - w.bitpos % 8) % 8 if width is None else width)
+
+
+def mc_file(C, bits=24, lengths=(MC_S, MC_S, 100), seed=0, ub=None, frame_kw=None):
+    """An .m4a of C channels (the muxer writes the ``chan`` record) ->
+    (bytes, source PCM, payloads, params).  ``frame_kw``: {frame index:
+    mc_frame keywords}."""
+    from alacnet_tpu_torch.codec.cookie import default_cookie
+    from alacnet_tpu_torch.container import mux
+
+    params = default_cookie(48000, bits, C, MC_S)
+    ub = (1 if bits == 24 else 0) if ub is None else ub
+    pcms, frames = [], []
+    for i, n in enumerate(lengths):
+        pcm = mc_pcm(n, C, bits, seed * 1000 + i)
+        pcms.append(pcm)
+        frames.append(mc_frame(pcm, params, ub=ub, **(frame_kw or {}).get(i, {})))
+    f = io.BytesIO()
+    mux.write_m4a(f, params, frames, list(lengths))
+    return f.getvalue(), np.concatenate(pcms), frames, params
+
+
+def mc_library(seed=0):
+    """Four 5.1 files, a 7.1 and a 3.0 file: every map's shape in one
+    pool, escapes and order-31 elements among them, and later elements
+    whose orders are above every element 0's (the wide launch)."""
+    files = [mc_file(6, 24, seed=seed), mc_file(6, 16, seed=seed + 1),
+             mc_file(6, 24, seed=seed + 2,
+                     frame_kw={0: {"raw": (2,)}, 1: {"orders": (31, 4, 8, 31)}}),
+             mc_file(8, 24, seed=seed + 3), mc_file(3, 16, seed=seed + 4),
+             mc_file(6, 16, seed=seed + 5,
+                     frame_kw={0: {"orders": (4, 12, 16, 6)}, 1: {"orders": (8, 4, 31, 16)}})]
+    return files
+
+
+def _mc_stereo_files():
+    import alacnet_tpu_torch as at
+
+    out = []
+    for ch, bits in ((2, 16), (1, 24)):
+        pcm = mc_pcm(700, ch, bits, 7 + ch)
+        f = io.BytesIO()
+        at.encode_m4a(f, pcm, 48000, bits, max_samples_per_frame=MC_S)
+        out.append((f.getvalue(), pcm))
+    return out
+
+
+def _checked_elem_head(monkeypatch, seen):
+    """Route ``frame_decode``'s header kernel through a wrapper that runs
+    the kernel and the plain version on the same inputs and compares."""
+    from alacnet_tpu_torch.ops import frame_decode as fd
+    from alacnet_tpu_torch.ops.cuda import elem_head as eh
+
+    real = eh.elem_head
+
+    def both(*a, **kw):
+        got = real(*a, **dict(kw, kernel="cuda"))
+        want = real(*a, **dict(kw, kernel="torch"))
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert torch.equal(g.cpu(), w.cpu()), f"elem_head pass {a[6]}"
+        seen.append(a[6])  # the element
+        return got
+
+    monkeypatch.setattr(fd.elem_head, "elem_head", both)
+
+
+def test_elem_head_kernel_matches_plain(cuda, monkeypatch):
+    """Every header pass of a pooled decode of every map's shape, DSE and
+    FIL elements, escapes and order 31: kernel and plain version equal,
+    and the PCM equals the source."""
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.codec.cookie import ID_DSE, ID_FIL
+
+    files = mc_library(1)
+    aux = {1: [(ID_DSE, [(3, 4), (1, 1), (255, 8), (2, 8), (0, None)] + [(0xA5, 8)] * 257)],
+           4: [(ID_FIL, [(15, 4), (3, 8)] + [(0, 8)] * 17)]}
+    files.append(mc_file(6, 24, seed=9, frame_kw={0: {"aux": aux}}))
+    seen = []
+    _checked_elem_head(monkeypatch, seen)
+    got = at.decode_streams([io.BytesIO(f[0]) for f in files], device="cuda")
+    assert seen and max(seen) == 5
+    for g, f in zip(got, files):
+        np.testing.assert_array_equal(g.pcm, f[1])
+
+
+@pytest.mark.parametrize("layout", [(84, 87, 92), (83, 86, 92), (83, 87, 93)])
+def test_elem_head_refuses_another_layout(cuda, layout):
+    """The header kernel's C entry refuses a packed layout other than its
+    own (``elem_head.N_PACKED``, ``N_CHAINED``, ``ROWS``) and takes its
+    own."""
+    from alacnet_tpu_torch.ops.cuda import _lib
+    from alacnet_tpu_torch.ops.cuda import elem_head as eh
+
+    assert (eh.N_PACKED, eh.N_CHAINED, eh.ROWS) == (83, 87, 92)
+
+    def launch(sizes):
+        _lib.launch("alac_elem_head", cuda, None, 0, 1, None, None, None, None, None, 1,
+                    4096, 8, *sizes, None, None, None)
+
+    launch((eh.N_PACKED, eh.N_CHAINED, eh.ROWS))
+    with pytest.raises(RuntimeError, match="alac_elem_head: CUDA error 1"):
+        launch(layout)
+    torch.cuda.synchronize()
+
+
+def test_multichannel_on_card_matches_plain_route_and_mesh(cuda):
+    """A pool of 5.1, 7.1, 3-channel, stereo and mono files on the card,
+    through the kernels, the plain route and a two-shard mesh on one
+    card: all equal to the source."""
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.parallel.mesh import Mesh
+
+    files = [(f[0], f[1]) for f in mc_library(2)] + _mc_stereo_files()
+    runs = {
+        "kernel": at.decode_streams([io.BytesIO(d) for d, _ in files], device="cuda"),
+        "plain": at.decode_streams([io.BytesIO(d) for d, _ in files],
+                                   config=at.DecodeConfig(device="cuda", kernel="torch")),
+        "mesh": at.decode_streams([io.BytesIO(d) for d, _ in files],
+                                  mesh=Mesh(["cuda:0", "cuda:0"])),
+    }
+    for name, got in runs.items():
+        for g, (_, pcm) in zip(got, files):
+            np.testing.assert_array_equal(g.pcm, pcm.astype(g.pcm.dtype), err_msg=name)
+
+
+def test_multichannel_mesh_over_every_card(cards):
+    """The element chain under a mesh of every card equals one card."""
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.parallel.mesh import Mesh
+
+    files = mc_library(3)
+    mesh = Mesh([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+    got = at.decode_streams([io.BytesIO(f[0]) for f in files], mesh=mesh)
+    for g, f in zip(got, files):
+        np.testing.assert_array_equal(g.pcm, f[1].astype(g.pcm.dtype))
+
+
+def test_stereo_pool_launches_unchanged(cuda):
+    """A stereo pool's ``decode_blob`` launches exactly what it launched
+    before the element chain (no header kernel, one epilogue, one
+    rice_lpc a channel a batch); a 5.1 pool adds the chain's passes."""
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.ops.cuda import _lib
+
+    _, _, streams = _pooled_smoke(2)
+    _lib.reset_launches()
+    at.decode_streams(streams, device="cuda")
+    torch.cuda.synchronize()
+    # the parent commit's count for this pool (two batches)
+    assert dict(_lib.LAUNCHES) == {"blob_words": 1, "pack_rows": 2, "rice_lpc": 4,
+                                   "bulk_bits": 2, "dec_epilogue": 2}
+    _lib.reset_launches()
+    at.decode_streams([io.BytesIO(mc_file(6, 24)[0])], device="cuda")
+    torch.cuda.synchronize()
+    # one batch: element 0 (bulk_bits, rice_lpc A, epilogue), then three
+    # chained elements (header, bulk_bits, rice_lpc A [+ B] at element
+    # 0's order bucket and again at the widest, epilogue) and the END pass
+    assert dict(_lib.LAUNCHES) == {"blob_words": 1, "pack_rows": 1, "elem_head": 4,
+                                   "bulk_bits": 4, "rice_lpc": 11, "dec_epilogue": 4}
+
+
+def check_dec_epilogue_wide(planes, cols, S, emit16, C, dev, seed=0):
+    """The C-channel epilogue through the kernel and the plain version,
+    bit for bit: the first element's call (every channel of each row),
+    then a later element's into that output (its channels at each lane's
+    offset, lanes at a negative offset untouched)."""
+    from alacnet_tpu_torch.ops.cuda.epilogue import decode_epilogue
+
+    p = _epilogue_planes(planes, "sample_major", dev)
+    c = [torch.from_numpy(cols[k]).to(dev) for k in EPILOGUE_COLUMNS]
+    B = c[0].shape[0]
+    got = decode_epilogue(*p, *c, S, emit16=emit16, kernel="cuda", channels=C)
+    want = decode_epilogue(*p, *c, S, emit16=emit16, kernel="torch", channels=C)
+    assert got.shape == (B, S, C) and torch.equal(got, want)
+    coff = np.random.default_rng(seed).integers(-1, C - 1, B)
+    coff = np.where(cols["is_stereo"], np.minimum(coff, C - 2), coff).astype(np.int32)
+    coff = torch.from_numpy(coff).to(dev)
+    got = decode_epilogue(*p, *c, S, emit16=emit16, kernel="cuda", channels=C, out=got,
+                          channel_offset=coff)
+    want = decode_epilogue(*p, *c, S, emit16=emit16, kernel="torch", channels=C, out=want,
+                           channel_offset=coff)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("C", [3, 6, 8])
+@pytest.mark.parametrize("emit16", [False, True])
+@pytest.mark.parametrize("B,S", [(1, 1), (70, 257), (1030, 64)])
+def test_dec_epilogue_wide_matches_plain(cuda, B, S, C, emit16):
+    planes, cols = epilogue_synthetic(B, S, seed=B + C)
+    cols["n"] = np.clip(cols["n"], 0, S).astype(np.int32)
+    check_dec_epilogue_wide(planes, cols, S, emit16, C, cuda, seed=S)
