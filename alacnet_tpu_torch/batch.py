@@ -86,7 +86,10 @@ def decode_streams(
             for info in infos
         ]
     max_s = max(i.params.max_samples_per_frame for i in infos)
-    out, n, status = decode_blob(*pooled, params, max_s, config=config, mesh=mesh)
+    # each file's dtype comes from its own bit depth (_assemble), so a
+    # padded batch of 16-bit frames may come back int16
+    out, n, status = decode_blob(*pooled, params, max_s, config=config, mesh=mesh,
+                                 real_lanes16=True)
     with trace_span("alac.host.assembly"):
         return _assemble(infos, spans, out, n, status)
 
@@ -152,9 +155,9 @@ def _file_pcm(out, n, lo, hi, nch, dtype) -> np.ndarray:
 
 
 def _assemble(infos, spans, out, n, status) -> list[DecodedAudio]:
-    """Each file's PCM from the pooled (F, S, 2) samples
+    """Each file's PCM from the pooled (F, S, C) samples
     (:func:`_file_pcm`): int16 for a 16-bit file, whatever the pool's
-    dtype (a mixed 16/24-bit or padded pool comes back int32)."""
+    dtype (a pool that mixes 16- and 24-bit files comes back int32)."""
     results = []
     for info, (lo, hi) in zip(infos, spans):
         nch = info.num_channels_or_default()

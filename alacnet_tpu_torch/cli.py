@@ -261,7 +261,8 @@ def _cmd_verify(args) -> int:
 
 def _cmd_stats(args) -> int:
     """Decode file(s) and print the pipeline counters: frames, samples,
-    bytes, batches, and each span's seconds and count."""
+    bytes, batches, the PCM copied back, and each span's seconds and
+    count."""
     from .batch import decode_files
     from .utils.observability import GLOBAL_STATS
 

@@ -102,16 +102,24 @@ class StagedBatch(NamedTuple):
 
 def stage_frame_batch(
     fb: FrameBatch, config: DecodeConfig, device_rows=None, n_shards: int = 1,
+    real_lanes16: bool = False,
 ) -> StagedBatch:
     """Host half of :func:`dispatch_frame_batch`: pad the lanes (to a
-    bucket, then to a multiple of ``n_shards``), pick the output dtype
-    over the padded batch, pack the metadata and (``device_rows = (ow,
-    nbytes, W)``) the row parameters."""
+    bucket, then to a multiple of ``n_shards``), pick the output dtype,
+    pack the metadata and (``device_rows = (ow, nbytes, W)``) the row
+    parameters.
+
+    With ``config.emit16`` the batch decodes to int16 where every lane
+    is 16-bit: every lane of the padded batch, as the JAX package picks,
+    or with ``real_lanes16`` only the ``orig_b`` real ones.  Pad lanes
+    (sample size 0, no samples) then decode to int16 too; a caller that
+    asks for it cuts them off before the PCM reaches the host."""
     orig_b = fb.batch
     fb = pad_frame_batch(fb)
     if fb.batch % n_shards:
         fb = pad_frame_batch(fb, -(-fb.batch // n_shards) * n_shards)
-    emit16 = config.emit16 and bool((fb.sample_size == 16).all())
+    lanes = fb.sample_size[:orig_b] if real_lanes16 else fb.sample_size
+    emit16 = config.emit16 and bool((lanes == 16).all())
     meta = FrameMetaArrays.pack_host(fb)
     if device_rows is None:
         return StagedBatch(fb.words, None, fb.words.shape[1], meta, emit16, orig_b)
@@ -156,7 +164,7 @@ def launch_frame_batch(
 
 def dispatch_frame_batch(
     fb: FrameBatch, max_samples: int, config: DecodeConfig, device_rows=None,
-    mesh=None,
+    mesh=None, real_lanes16: bool = False,
 ):
     """Queue one batch's decode; returns device tensors (out, n, orig_b)
     without synchronising.
@@ -166,13 +174,14 @@ def dispatch_frame_batch(
     ``blob_words`` blob: the word rows are then cut on the device
     (kernel 1) instead of shipped from the host; fb carries an empty
     (B, 0) words placeholder.  ``mesh``: shard the lanes over it
-    (:func:`launch_frame_batch`).
+    (:func:`launch_frame_batch`).  ``real_lanes16``: pick the output
+    dtype over the first ``orig_b`` lanes (:func:`stage_frame_batch`).
     """
     bwords = None
     if device_rows is not None:
         bwords, device_rows = device_rows[0], device_rows[1:]
     n_shards = 1 if mesh is None else mesh.size
-    staged = stage_frame_batch(fb, config, device_rows, n_shards)
+    staged = stage_frame_batch(fb, config, device_rows, n_shards, real_lanes16)
     out, n = launch_frame_batch(staged, max_samples, config, bwords, mesh)
     return out, n, staged.orig_b
 
@@ -348,6 +357,7 @@ def decode_blob(
     sink=None,
     config: DecodeConfig | None = None,
     mesh=None,
+    real_lanes16: bool = False,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Decode frames addressed as (offset, size) into a raw byte blob.
 
@@ -373,6 +383,11 @@ def decode_blob(
     its own stream, the blob words replicated once per distinct device.
     A sink then gets ``mesh.Sharded`` (out, n), each part ready on its
     shard's stream.
+
+    ``real_lanes16``: a batch whose real lanes are all 16-bit comes back
+    int16 even when it is padded (:func:`stage_frame_batch`), so the
+    returned samples' dtype is no longer the JAX package's: for callers
+    that choose each file's dtype themselves (``batch.decode_streams``).
     """
     config = resolve(
         config, device=None if mesh is None else str(mesh.devices[0]),
@@ -414,7 +429,8 @@ def decode_blob(
             status = np.where(refused[: len(status)], -n[: len(status)], status)
             n = np.where(refused, 0, n)
         GLOBAL_STATS.record(
-            frames=frames, samples=int(n.sum()), coded_bytes=nbytes
+            frames=frames, samples=int(n.sum()), coded_bytes=nbytes,
+            pcm_bytes=out.nbytes, int16=out.dtype == np.int16,
         )
         outs.append(out)
         ns.append(n)
@@ -425,6 +441,7 @@ def decode_blob(
             out_d, n_d, orig_b = dispatch_frame_batch(
                 fb, max_samples, config,
                 device_rows=None if rows is None else (bwords, *rows), mesh=mesh,
+                real_lanes16=real_lanes16,
             )
             if sink is not None:
                 wait = None

@@ -3,8 +3,9 @@
 The counterpart of ``alacnet_tpu/utils/observability.py``:
 
   * ``DecodeStats`` / ``GLOBAL_STATS`` — process-wide counters (frames,
-    samples, bytes, batches, files assembled as views or in block
-    copies) and each span's seconds and count;
+    samples, bytes, batches, the PCM copied back and the batches of it
+    that came back int16, files assembled as views or in block copies)
+    and each span's seconds and count;
   * ``trace_span`` — a wall-clock span that also opens a
     ``torch.profiler.record_function`` range, so a ``torch.profiler``
     trace shows the pipeline stages beside the kernels, and adds its
@@ -62,6 +63,10 @@ class DecodeStats:
     coded_bytes: int = 0
     #: Frame batches decoded (one :meth:`record` call each).
     dispatches: int = 0
+    #: Of those batches, the ones whose PCM came back to the host as
+    #: int16; and the bytes of PCM copied back (real lanes only).
+    int16_batches: int = 0
+    pcm_bytes_back: int = 0
     #: Files assembled from a decoded pool (``batch._file_pcm``): those
     #: handed back as a view of the pool, and the block copies (runs of
     #: frames) made for the others.
@@ -82,13 +87,17 @@ class DecodeStats:
     def __post_init__(self):
         self._lock = threading.Lock()
 
-    def record(self, frames: int = 0, samples: int = 0, coded_bytes: int = 0) -> None:
-        """Count one decoded batch."""
+    def record(self, frames: int = 0, samples: int = 0, coded_bytes: int = 0,
+               pcm_bytes: int = 0, int16: bool = False) -> None:
+        """Count one decoded batch, and the ``pcm_bytes`` of its PCM
+        copied back (``int16`` if they came back as int16)."""
         with self._lock:
             self.frames += frames
             self.samples += samples
             self.coded_bytes += coded_bytes
             self.dispatches += 1
+            self.int16_batches += int(int16)
+            self.pcm_bytes_back += pcm_bytes
 
     def record_assembly(self, view: bool = False, runs: int = 0) -> None:
         """Count one assembled file: a view, or a copy in ``runs`` blocks."""
@@ -129,6 +138,8 @@ class DecodeStats:
                 "samples": self.samples,
                 "coded_bytes": self.coded_bytes,
                 "dispatches": self.dispatches,
+                "int16_batches": self.int16_batches,
+                "pcm_bytes_back": self.pcm_bytes_back,
                 "assembled_files": self.assembled_files,
                 "assembly_views": self.assembly_views,
                 "assembly_runs": self.assembly_runs,
@@ -146,6 +157,7 @@ class DecodeStats:
     def reset(self) -> None:
         with self._lock:
             self.frames = self.samples = self.coded_bytes = self.dispatches = 0
+            self.int16_batches = self.pcm_bytes_back = 0
             self.assembled_files = self.assembly_views = self.assembly_runs = 0
             self.elements = self.element_passes = self.multichannel_frames = 0
             self.span_seconds.clear()

@@ -2330,3 +2330,87 @@ def test_dec_epilogue_wide_matches_plain(cuda, B, S, C, emit16):
     planes, cols = epilogue_synthetic(B, S, seed=B + C)
     cols["n"] = np.clip(cols["n"], 0, S).astype(np.int32)
     check_dec_epilogue_wide(planes, cols, S, emit16, C, cuda, seed=S)
+
+
+def _track16(frames, seed):
+    """A 16-bit stereo .m4a of ``frames`` 4096-sample frames, the last one
+    partial -> (bytes, source PCM)."""
+    import alacnet_tpu_torch as at
+
+    pcm = mc_pcm(4096 * (frames - 1) + 100, 2, 16, seed)
+    f = io.BytesIO()
+    at.encode_m4a(f, pcm, 44100, 16)
+    return f.getvalue(), pcm
+
+
+def _decode_counted(streams, **kw):
+    """``decode_streams`` and ``GLOBAL_STATS``'s snapshot of that call."""
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.utils.observability import GLOBAL_STATS
+
+    GLOBAL_STATS.reset()
+    got = at.decode_streams(streams, **kw)
+    torch.cuda.synchronize()
+    snap = GLOBAL_STATS.snapshot()
+    GLOBAL_STATS.reset()
+    return got, snap
+
+
+@pytest.mark.parametrize("frames", [3, 65, 1030])
+def test_padded_16bit_track_launches_the_int16_epilogue(cuda, monkeypatch, frames):
+    """A one-track 16-bit ``decode_streams`` whose batches are all padded
+    launches only ``epilogue_kernel<int16_t>`` (emit16, two channels),
+    ships half the bytes of ``emit16=False`` and equals the plain route
+    and the source."""
+    import collections
+
+    import alacnet_tpu_torch as at
+    from alacnet_tpu_torch.batch import _pool
+    from alacnet_tpu_torch.ops.cuda import _lib
+    from alacnet_tpu_torch.parallel import pipeline as P
+
+    data, pcm = _track16(frames, frames)
+    _, _, pooled, params = _pool([io.BytesIO(data)])
+    lanes = [hi - lo for lo, hi in P.plan_blob_batches(*pooled, params, 4096, True)[2]]
+    assert all(b not in P.BATCH_BUCKETS for b in lanes)
+    epilogues = collections.Counter()
+    orig = _lib.launch
+
+    def rec(name, device, *args):
+        if name == "alac_dec_epilogue":
+            epilogues[args[-4:-2]] += 1  # (emit16, channels)
+        return orig(name, device, *args)
+
+    monkeypatch.setattr(_lib, "launch", rec)
+    _lib.reset_launches()
+    (got,), snap = _decode_counted([io.BytesIO(data)], device="cuda")
+    assert dict(epilogues) == {(1, 2): len(lanes)} and _lib.LAUNCHES["dec_epilogue"] == len(lanes)
+    assert snap["int16_batches"] == snap["dispatches"] == len(lanes)
+    assert snap["assembly_views"] == 1
+    assert got.pcm.dtype == np.int16
+    np.testing.assert_array_equal(got.pcm, pcm)
+    (plain,), _ = _decode_counted([io.BytesIO(data)],
+                                  config=at.DecodeConfig(device="cuda", kernel="torch"))
+    assert plain.pcm.dtype == np.int16
+    np.testing.assert_array_equal(plain.pcm, got.pcm)
+    (wide,), off = _decode_counted([io.BytesIO(data)],
+                                   config=at.DecodeConfig(device="cuda", emit16=False))
+    np.testing.assert_array_equal(wide.pcm, got.pcm)
+    assert off["int16_batches"] == 0
+    assert off["pcm_bytes_back"] == 2 * snap["pcm_bytes_back"] == frames * 4096 * 2 * 4
+
+
+def test_padded_16bit_pool_mesh_over_every_card(cards):
+    """Eight 16-bit tracks over a mesh of every card: int16 batches
+    throughout, each file equal to one card's and to its source."""
+    from alacnet_tpu_torch.parallel.mesh import Mesh
+
+    tracks = [_track16(k, 20 + k) for k in (1, 3, 9, 65, 70, 130, 200, 300)]
+    mesh = Mesh([f"cuda:{i}" for i in range(len(cards))])
+    meshed, snap = _decode_counted([io.BytesIO(d) for d, _ in tracks], mesh=mesh)
+    one, one_snap = _decode_counted([io.BytesIO(d) for d, _ in tracks], device="cuda")
+    assert snap["int16_batches"] == snap["dispatches"] == one_snap["int16_batches"]
+    for m, o, (_, pcm) in zip(meshed, one, tracks):
+        assert m.pcm.dtype == o.pcm.dtype == np.int16
+        np.testing.assert_array_equal(m.pcm, pcm)
+        np.testing.assert_array_equal(o.pcm, pcm)

@@ -179,3 +179,28 @@ def test_cli_stats_prints_each_span(files, tmp_path, capsys):
     assert set(stats["spans"]) == set(ONE_DEVICE_SPANS)
     for s in stats["spans"].values():
         assert s["seconds"] >= 0 and s["count"] >= 1
+
+
+def test_pcm_counters_in_snapshot_and_reset(files, counted):
+    """Every batch of the two 16-bit files comes back int16 (the padded
+    ones too), 2 B a value of each real lane."""
+    snap = counted["snapshot"]
+    assert snap["int16_batches"] == snap["dispatches"] == batches(files)
+    assert snap["pcm_bytes_back"] == (5 + 6) * FS * 2 * 2
+    GLOBAL_STATS.reset()
+    GLOBAL_STATS.record(frames=2, pcm_bytes=96, int16=True)
+    GLOBAL_STATS.record(frames=1, pcm_bytes=40)
+    snap = GLOBAL_STATS.snapshot()
+    assert (snap["dispatches"], snap["int16_batches"], snap["pcm_bytes_back"]) == (2, 1, 136)
+    GLOBAL_STATS.reset()
+    snap = GLOBAL_STATS.snapshot()
+    assert (snap["int16_batches"], snap["pcm_bytes_back"]) == (0, 0)
+
+
+def test_cli_stats_prints_pcm_counters(files, tmp_path, capsys):
+    path = tmp_path / "a.m4a"
+    path.write_bytes(files[0])
+    assert tcli.main(["stats", str(path), "--device", "cpu"]) == 0
+    stats = json.loads(capsys.readouterr().out)
+    assert stats["int16_batches"] == stats["dispatches"] >= 1
+    assert stats["pcm_bytes_back"] == 5 * FS * 2 * 2
