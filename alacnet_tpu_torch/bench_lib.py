@@ -80,6 +80,7 @@ from .codec.encoder import AlacEncoder, EncoderConfig
 from .config import DecodeConfig
 from .ops.cuda import _lib
 from .ops.cuda.pack_rows import blob_words
+from .parallel.mesh import Mesh
 from .parallel.pipeline import (
     StagedBatch, blob_spans, decode_blob, launch_frame_batch, stage_frame_batch,
 )
@@ -436,10 +437,18 @@ def _device_stage(staged: _Staged, S: int, config: DecodeConfig, check,
         copies = [first] + [first.clone() for _ in range(n - 1)]
 
     def run_pass(k):
-        bw = copies[k % len(copies)]
-        return [launch_frame_batch(b, S, config, bw) for b in staged.batches]
+        return _launch_spans(staged, S, config, copies[k % len(copies)])
 
     return _device_runs(run_pass, check, passes, runs, cuda)
+
+
+def _launch_spans(staged: _Staged, S: int, config: DecodeConfig, bw) -> list:
+    """Queue every span's decode (``launch_frame_batch``) on a mesh of
+    one shard on ``config.device``, ``bw`` its blob words; returns each
+    span's (out, n) as that shard's device tensors."""
+    mesh = Mesh([config.torch_device])
+    return [tuple(x.parts[0] for x in launch_frame_batch(b, S, config, (bw,), mesh))
+            for b in staged.batches]
 
 
 def _gate_device(outs, staged: _Staged, src, table, lengths, dev) -> tuple[bool, int]:
@@ -528,8 +537,7 @@ def run_benchmark(
         if trace_dir is not None:
             bw = blob_words(staged.blob, dev, max_w=staged.max_w, kernel=config.kernel)
             profile = profile_busy(
-                lambda: [launch_frame_batch(b, frame_samples, config, bw)
-                         for b in staged.batches],
+                lambda: _launch_spans(staged, frame_samples, config, bw),
                 dev, trace_dir,
             )
     device_s = msps = disp = None

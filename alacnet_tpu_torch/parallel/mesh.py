@@ -5,12 +5,14 @@ independent (all decoder state is re-read from the bitstream per frame),
 so the lane axis of a frame batch splits into contiguous equal shards,
 one per mesh entry, and each shard runs the single-device decode or
 encode on its own device.  Torch has no ``jax.sharding``: a
-:class:`Mesh` is a tuple of devices, repeats allowed, with one CUDA
-stream per shard, so two shards on one card run side by side.  A
-shard's uploads, kernels and copies back are queued on its stream;
-each stream first waits for whatever the device's current stream
-queued before (the replicated blob).  The only reductions are the
-accounting scalars (:func:`_decode_and_account`).
+:class:`Mesh` is a tuple of devices, repeats allowed.  A mesh of one
+device runs on that device's current stream, so a decode without a mesh
+is a mesh of one shard (``pipeline.decode_blob``).  More shards get one
+CUDA stream each, so two shards on one card run side by side; a shard's
+uploads, kernels and copies back are queued on its stream, which first
+waits for whatever the device's current stream queued before (the
+replicated blob).  The only reductions are the accounting scalars
+(:func:`_decode_and_account`).
 
 Results come back as :class:`Sharded`: one tensor per shard, in lane
 order, with :meth:`Sharded.fetch` to copy them into one host array.
@@ -40,7 +42,8 @@ class Mesh:
     Devices may repeat (``["cuda:0", "cuda:0"]``: two shards, two
     streams on one card; ``["cpu"] * 8`` on a machine without one).
     All entries share one device type.  ``streams[i]`` is shard i's CUDA
-    stream, or None on the CPU.
+    stream, or None on the CPU and for a mesh of one shard, which runs
+    on its device's current stream.
     """
 
     axis_names = (FRAME_AXIS,)
@@ -64,7 +67,7 @@ class Mesh:
             raise ValueError(f"a mesh spans one device type, got {devs}")
         self.devices = tuple(devs)
         self.streams = tuple(
-            torch.cuda.Stream(device=d) if d.type == "cuda" else None
+            torch.cuda.Stream(device=d) if d.type == "cuda" and len(devs) > 1 else None
             for d in devs
         )
 
@@ -77,11 +80,13 @@ class Mesh:
 
     @contextlib.contextmanager
     def shard(self, i: int):
-        """Run the block on shard ``i``: on CUDA, on its stream, after
-        the work queued so far on its device's current stream."""
+        """Run the block on shard ``i``, with its device current: on its
+        stream, if it has one, after the work queued so far on its
+        device's current stream."""
         s = self.streams[i]
         if s is None:
-            yield self.devices[i]
+            with _current(self.devices[i]):
+                yield self.devices[i]
             return
         s.wait_stream(torch.cuda.current_stream(self.devices[i]))
         with torch.cuda.stream(s):
@@ -95,7 +100,7 @@ class Mesh:
         made: dict = {}
         for d in self.devices:
             if d not in made:
-                with torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext():
+                with _current(d):
                     made[d] = make(d)
         out = tuple(made[d] for d in self.devices)
         for t, s in zip(out, self.streams):
@@ -136,8 +141,9 @@ def make_mesh(devices=None) -> Mesh:
 
 class Sharded(NamedTuple):
     """A lane-sharded array: ``parts[i]`` lies on shard i's device and is
-    ready on ``streams[i]`` (None on the CPU); concatenated in order
-    along ``axis`` they are the global array."""
+    ready on ``streams[i]`` (None on the CPU, or for the current stream
+    of the part's device); concatenated in order along ``axis`` they are
+    the global array."""
 
     parts: tuple
     streams: tuple
@@ -170,7 +176,7 @@ class Sharded(NamedTuple):
                            part.narrow(self.axis, 0, keep))
                 if cuda:
                     done.append(torch.cuda.Event())
-                    done[-1].record()
+                    done[-1].record(torch.cuda.current_stream(part.device))
             lo += keep
 
         def wait():
@@ -205,6 +211,23 @@ def _on(stream):
     return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
 
 
+def _current(device: torch.device):
+    """Make ``device`` the current one, if it is a card."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _queues(mesh: Mesh) -> tuple:
+    """The stream each shard's work is queued on from the calling
+    thread: its own, or for a mesh of one shard on a card, that card's
+    current stream (None on the CPU).  A :class:`Sharded` names it, so
+    that a copy back from another thread (the encoder's pack worker)
+    still waits for that work."""
+    return tuple(
+        torch.cuda.current_stream(d) if s is None and d.type == "cuda" else s
+        for d, s in zip(mesh.devices, mesh.streams)
+    )
+
+
 def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
     """``dst.copy_(src)``, asynchronous from a CUDA ``src`` into pinned
     ``dst``: a strided ``dst`` (a shard's slice of a later axis) is
@@ -220,11 +243,10 @@ def _shard_rows(rows: np.ndarray, mesh: Mesh) -> Sharded:
     """Upload each shard's slice of a (B, ...) host array on its stream."""
     b = mesh.lanes(rows.shape[0])
     parts = []
-    with trace_span("alac.host.h2d"):
-        for i in range(mesh.size):
-            with mesh.shard(i) as dev:
-                parts.append(h2d(rows[i * b : (i + 1) * b], dev))
-    return Sharded(tuple(parts), mesh.streams)
+    for i in range(mesh.size):
+        with mesh.shard(i) as dev:
+            parts.append(h2d(rows[i * b : (i + 1) * b], dev))
+    return Sharded(tuple(parts), _queues(mesh))
 
 
 def shard_frame_batch(fb, mesh: Mesh) -> tuple[Sharded, np.ndarray]:
@@ -240,6 +262,44 @@ def shard_frame_batch(fb, mesh: Mesh) -> tuple[Sharded, np.ndarray]:
     return words, FrameMetaArrays.pack_host(fb)
 
 
+def _decode_shards(
+    mesh: Mesh, packed_meta: np.ndarray, num_samples: int, emit16: bool, kernel: str,
+    words=None, rows: np.ndarray | None = None, bwords=None, W: int = 0,
+) -> tuple[Sharded, Sharded]:
+    """The decode loop of every mesh, a mesh of one shard included.
+
+    Shard i (lanes [i*b, (i+1)*b)), under ``alac.host.enqueue.shard<i>``
+    and :meth:`Mesh.shard`, takes its word rows from ``words``: its part
+    of a :class:`Sharded` already on the shards, or its slice of the
+    (B, W) host rows, uploaded under ``alac.host.h2d``.  With ``rows``,
+    the (2, B) host (word offset, byte count) of every lane, it uploads
+    its lanes' pairs there instead and cuts its rows from its copy of
+    the blob words, ``bwords[i]`` (``pack_rows``, kernel 1).  Then
+    ``decode_frames_packed`` on its lanes of the host ``packed_meta``.
+    Returns (out, n), sharded on the frame axis.
+    """
+    b = mesh.lanes(packed_meta.shape[0])
+    outs, ns = [], []
+    for i in range(mesh.size):
+        lo, hi = i * b, (i + 1) * b
+        with trace_span(f"alac.host.enqueue.shard{i}"), mesh.shard(i) as dev:
+            if isinstance(words, Sharded):
+                w = words.parts[i]
+            else:
+                with trace_span("alac.host.h2d"):
+                    w = h2d(words[lo:hi].view(np.int32) if rows is None
+                            else rows[:, lo:hi], dev)
+                if rows is not None:
+                    w = pack_rows(bwords[i], w[0], w[1], W, kernel=kernel)
+            out, n = decode_frames_packed(
+                w, packed_meta[lo:hi], num_samples, emit16=emit16, kernel=kernel,
+            )
+        outs.append(out)
+        ns.append(n)
+    streams = _queues(mesh)
+    return Sharded(tuple(outs), streams), Sharded(tuple(ns), streams)
+
+
 def decode_frames_spmd(
     words: Sharded, packed_meta: np.ndarray, mesh: Mesh, num_samples: int,
     emit16: bool = False, kernel: str = "auto",
@@ -247,17 +307,7 @@ def decode_frames_spmd(
     """``decode_frames_packed`` on each shard: its rows from ``words``
     (:func:`shard_frame_batch`), its lanes of the host ``packed_meta``.
     Returns (out, n), sharded on the frame axis."""
-    b = mesh.lanes(packed_meta.shape[0])
-    outs, ns = [], []
-    for i in range(mesh.size):
-        with trace_span(f"alac.host.enqueue.shard{i}"), mesh.shard(i):
-            out, n = decode_frames_packed(
-                words.parts[i], packed_meta[i * b : (i + 1) * b], num_samples,
-                emit16=emit16, kernel=kernel,
-            )
-        outs.append(out)
-        ns.append(n)
-    return Sharded(tuple(outs), mesh.streams), Sharded(tuple(ns), mesh.streams)
+    return _decode_shards(mesh, packed_meta, num_samples, emit16, kernel, words=words)
 
 
 def decode_frames_spmd_rows(
@@ -274,22 +324,10 @@ def decode_frames_spmd_rows(
     them.  ``ow``/``nbytes``/``packed_meta`` are host arrays padded to
     the global lane count.
     """
-    b = mesh.lanes(packed_meta.shape[0])
-    rows = np.stack([ow, nbytes]).astype(np.int32)
-    outs, ns = [], []
-    for i in range(mesh.size):
-        lo, hi = i * b, (i + 1) * b
-        with trace_span(f"alac.host.enqueue.shard{i}"), mesh.shard(i) as dev:
-            with trace_span("alac.host.h2d"):
-                r = h2d(rows[:, lo:hi], dev)
-            words = pack_rows(bwords[i], r[0], r[1], W, kernel=kernel)
-            out, n = decode_frames_packed(
-                words, packed_meta[lo:hi], num_samples, emit16=emit16,
-                kernel=kernel,
-            )
-        outs.append(out)
-        ns.append(n)
-    return Sharded(tuple(outs), mesh.streams), Sharded(tuple(ns), mesh.streams)
+    return _decode_shards(
+        mesh, packed_meta, num_samples, emit16, kernel,
+        rows=np.stack([ow, nbytes]).astype(np.int32), bwords=bwords, W=W,
+    )
 
 
 def wrap_int32(x: int) -> int:
@@ -383,8 +421,9 @@ def encode_stages_pcm_spmd(
                 wide=wide, kernel=kernel, pairs=pairs, quads=quads,
             )
             outs.append([p.reshape(2, f, *p.shape[1:]) for p in planes])
+    streams = _queues(mesh)
     return tuple(
-        Sharded(tuple(o[j] for o in outs), mesh.streams, axis=1)
+        Sharded(tuple(o[j] for o in outs), streams, axis=1)
         for j in range(len(outs[0]))
     )
 

@@ -4,9 +4,10 @@ The counterpart of ``alacnet_tpu/parallel/pipeline.py`` for one torch
 device or a mesh of them (``parallel/mesh.py``).  Stage 1 parses
 headers and plans lanes on the host (``plan_blob_batches``: NumPy plus
 the native C++ tier), stage 2 decodes on the device
-(``ops/frame_decode.py``: kernels 1-3 and an elementwise epilogue;
-under a mesh, each shard on its own stream), stage 3 unsorts the PCM on
-the host.  At most two batches are in flight: the host parses batch k+1
+(``ops/frame_decode.py``: kernels 1-3 and an elementwise epilogue),
+each shard of a mesh in turn (a decode without a mesh is a mesh of one
+shard, on its device's current stream), stage 3 unsorts the PCM on the
+host.  At most two batches are in flight: the host parses batch k+1
 while the card decodes batch k.
 """
 
@@ -16,7 +17,6 @@ import dataclasses
 from typing import NamedTuple
 
 import numpy as np
-import torch
 
 from ..codec.cookie import CodecParams
 from ..codec.framemeta import FrameBatch
@@ -26,15 +26,12 @@ from ..codec.framemeta_vec import (
 from ..config import DecodeConfig, resolve
 from ..errors import UnsupportedFormatError
 from ..ops.bitreader import WINDOW_PAD, pack_frames_to_words
-from ..ops.cuda.pack_rows import (
-    blob_words, blob_words_uploader, host_row_params, pack_rows,
-)
-from ..ops.frame_decode import FrameMetaArrays, decode_frames_packed
+from ..ops.cuda.pack_rows import blob_words_uploader, host_row_params
+from ..ops.frame_decode import FrameMetaArrays
 from ..utils.observability import (
     GLOBAL_STATS, PARSE_SPAN, RESULT_WAIT_SPAN, trace_span,
 )
-from ..utils.transfer import d2h_async, h2d
-from .mesh import Sharded, _shard_rows, decode_frames_spmd, decode_frames_spmd_rows
+from .mesh import Mesh, Sharded, _decode_shards
 
 #: Lane-count buckets (powers of two up to 4096 frames in flight).
 BATCH_BUCKETS = (8, 64, 256, 1024, 2048, 3072, 4096)
@@ -128,37 +125,32 @@ def stage_frame_batch(
     return StagedBatch(None, rows, W, meta, emit16, orig_b)
 
 
-def launch_frame_batch(
-    staged: StagedBatch, max_samples: int, config: DecodeConfig, bwords=None,
-    mesh=None,
-):
-    """Device half of :func:`dispatch_frame_batch`: upload the staged
-    batch, cut its rows from ``bwords`` (kernel 1) when it has row
-    parameters, and queue the decode; returns (out, n) device tensors
-    without synchronising.  Under a ``mesh`` (``parallel/mesh.py``) each
-    shard uploads its own slice and decodes it on its stream, and (out,
-    n) are ``mesh.Sharded``; ``bwords`` is then the per-shard tuple of
-    ``Mesh.replicated``."""
+def _device_mesh(mesh, config: DecodeConfig | None, sink=None, **overrides):
+    """The mesh a decode runs on, the config it runs with
+    (``config.resolve`` with ``overrides``) and its ``sink``: ``mesh``,
+    whose first device then stands in for ``config.device``, or else a
+    mesh of one shard on ``config.device``, with the sink given that
+    shard's tensors, as a call without a mesh promises.  The one place a
+    decode tells the two apart."""
     if mesh is not None:
-        if staged.rows is not None:
-            return decode_frames_spmd_rows(
-                bwords, staged.rows[0], staged.rows[1], staged.W, staged.meta,
-                mesh, max_samples, emit16=staged.emit16, kernel=config.kernel,
-            )
-        return decode_frames_spmd(
-            _shard_rows(staged.words.view(np.int32), mesh), staged.meta, mesh,
-            max_samples, emit16=staged.emit16, kernel=config.kernel,
-        )
-    dev = config.torch_device
-    if staged.rows is not None:
-        with trace_span("alac.host.h2d"):
-            rows = h2d(staged.rows, dev)
-        words = pack_rows(bwords, rows[0], rows[1], staged.W, kernel=config.kernel)
-    else:
-        with trace_span("alac.host.h2d"):
-            words = h2d(staged.words.view(np.int32), dev)
-    return decode_frames_packed(
-        words, staged.meta, max_samples, emit16=staged.emit16, kernel=config.kernel,
+        return mesh, resolve(config, device=str(mesh.devices[0]), **overrides), sink
+    config = resolve(config, **overrides)
+    plain = sink and (lambda out, n, orig_b: sink(out.parts[0], n.parts[0], orig_b))
+    return Mesh([config.torch_device]), config, plain
+
+
+def launch_frame_batch(
+    staged: StagedBatch, max_samples: int, config: DecodeConfig, bwords, mesh: Mesh,
+) -> tuple[Sharded, Sharded]:
+    """Device half of :func:`dispatch_frame_batch`: each shard of the
+    ``mesh`` (``parallel/mesh.py``) uploads its slice of the staged
+    batch, cuts its rows from its copy of the blob words when the batch
+    has row parameters (kernel 1; ``bwords`` is the per-shard tuple of
+    ``Mesh.replicated``), and queues its decode.  Returns (out, n) as
+    ``mesh.Sharded`` without synchronising."""
+    return _decode_shards(
+        mesh, staged.meta, max_samples, staged.emit16, config.kernel,
+        words=staged.words, rows=staged.rows, bwords=bwords, W=staged.W,
     )
 
 
@@ -166,22 +158,23 @@ def dispatch_frame_batch(
     fb: FrameBatch, max_samples: int, config: DecodeConfig, device_rows=None,
     mesh=None, real_lanes16: bool = False,
 ):
-    """Queue one batch's decode; returns device tensors (out, n, orig_b)
-    without synchronising.
+    """Queue one batch's decode; returns (out, n, orig_b), (out, n) as
+    ``mesh.Sharded``, without synchronising.
 
     ``device_rows``: ``(bwords, ow, nbytes, W)`` from
     ``span_batch(idx, device_rows=True)`` plus the device-resident
-    ``blob_words`` blob: the word rows are then cut on the device
-    (kernel 1) instead of shipped from the host; fb carries an empty
-    (B, 0) words placeholder.  ``mesh``: shard the lanes over it
-    (:func:`launch_frame_batch`).  ``real_lanes16``: pick the output
+    blob words, one copy a shard (``Mesh.replicated``): the word rows
+    are then cut on the device (kernel 1) instead of shipped from the
+    host; fb carries an empty (B, 0) words placeholder.  ``mesh``: shard
+    the lanes over it (default one shard on ``config.device``;
+    :func:`launch_frame_batch`).  ``real_lanes16``: pick the output
     dtype over the first ``orig_b`` lanes (:func:`stage_frame_batch`).
     """
+    mesh, config, _ = _device_mesh(mesh, config)
     bwords = None
     if device_rows is not None:
         bwords, device_rows = device_rows[0], device_rows[1:]
-    n_shards = 1 if mesh is None else mesh.size
-    staged = stage_frame_batch(fb, config, device_rows, n_shards, real_lanes16)
+    staged = stage_frame_batch(fb, config, device_rows, mesh.size, real_lanes16)
     out, n = launch_frame_batch(staged, max_samples, config, bwords, mesh)
     return out, n, staged.orig_b
 
@@ -193,7 +186,7 @@ def decode_frame_batch(
     or the batch's widest frames' channel count, and n is -status where
     the element chain refused a frame of 3-8 channels."""
     out, n, orig_b = dispatch_frame_batch(fb, max_samples, config)
-    return d2h_async(out[:orig_b], n[:orig_b])()
+    return _fetch_sharded(out, n, orig_b)()
 
 
 def plan_blob_batches(
@@ -382,17 +375,16 @@ def decode_blob(
     every batch's lanes split over the mesh's shards, each decoded on
     its own stream, the blob words replicated once per distinct device.
     A sink then gets ``mesh.Sharded`` (out, n), each part ready on its
-    shard's stream.
+    shard's stream.  Without a mesh the decode runs on a mesh of one
+    shard on ``config.device`` (its current stream), and a sink gets
+    that shard's tensors.
 
     ``real_lanes16``: a batch whose real lanes are all 16-bit comes back
     int16 even when it is padded (:func:`stage_frame_batch`), so the
     returned samples' dtype is no longer the JAX package's: for callers
     that choose each file's dtype themselves (``batch.decode_streams``).
     """
-    config = resolve(
-        config, device=None if mesh is None else str(mesh.devices[0]),
-        strict=strict,
-    )
+    mesh, config, sink = _device_mesh(mesh, config, sink, strict=strict)
     if batch_limit is None:
         batch_limit = config.batch_limit
     sizes = np.asarray(sizes)
@@ -400,13 +392,9 @@ def decode_blob(
     bwords = None
     if max_w is not None:
         with trace_span("alac.host.h2d"):
-            if mesh is not None:
-                # one host staging of the blob; each distinct card uploads from it
-                bwords = mesh.replicated(
-                    blob_words_uploader(np.asarray(blob), max_w, config.kernel))
-            else:
-                bwords = blob_words(np.asarray(blob), config.torch_device,
-                                    max_w=max_w, kernel=config.kernel)
+            # one host staging of the blob; each distinct card uploads from it
+            bwords = mesh.replicated(
+                blob_words_uploader(np.asarray(blob), max_w, config.kernel))
     outs, ns, sts = [], [], []
     pending: list = []
 
@@ -443,12 +431,7 @@ def decode_blob(
                 device_rows=None if rows is None else (bwords, *rows), mesh=mesh,
                 real_lanes16=real_lanes16,
             )
-            if sink is not None:
-                wait = None
-            elif mesh is not None:
-                wait = _fetch_sharded(out_d, n_d, orig_b)
-            else:
-                wait = d2h_async(out_d[:orig_b], n_d[:orig_b])
+            wait = None if sink is not None else _fetch_sharded(out_d, n_d, orig_b)
         if sink is not None:
             sink(out_d, n_d, orig_b)
         pending.append(
@@ -481,7 +464,8 @@ def _concat_channels(outs: list) -> np.ndarray:
 
 
 def _fetch_sharded(out: Sharded, n: Sharded, orig_b: int):
-    """``d2h_async`` of a mesh batch's first ``orig_b`` lanes."""
+    """Start copying a batch's first ``orig_b`` lanes of (out, n) to the
+    host; returns a callable that waits for them (``Sharded.fetch``)."""
     wo, wn = out.fetch(orig_b), n.fetch(orig_b)
     return lambda: (wo(), wn())
 

@@ -163,16 +163,13 @@ on failure, each printing its seconds:
    default under ``LOCAL_RANK``/``LOCAL_WORLD_SIZE`` (rank r must hold
    ``cuda:r`` as its current device), held as the other runs.  Then
    ``decode_blob``'s rates over the bench's mixed pool, to host PCM and
-   into a sink on the cards, without a mesh, over a one-card mesh, over
-   two shards and, with several cards, over every card, in turns
-   (``MESH_RATE_RUNS`` each, the quartiles of each arm's runs); with
-   several cards also over four times the pool, one card against every
-   card, and the blob's host staging once a card against once for every
-   card; the one-device path: no mesh against a one-card mesh on the
-   session API's 64-frame windows (``AlacContext.read_all`` over the
-   long stream) and on each bench kind's device stage, in turns; with
-   several cards, the pooled ``encode_files`` over every card against
-   one card, in turns.  Each rate line carries the cards' names and
+   into a sink on the cards, on one card (a decode without a mesh runs
+   the same one-shard mesh), over two shards and, with several cards,
+   over every card, in turns (``MESH_RATE_RUNS`` each, the quartiles of
+   each arm's runs); with several cards also over four times the pool,
+   one card against every card, and the blob's host staging once a card
+   against once for every card; with several cards, the pooled
+   ``encode_files`` over every card against one card, in turns.  Each rate line carries the cards' names and
    power limits.  The ``kernels`` line's ``mesh_launches`` are the
    two-shard decode's and encode's counts, ``mesh_max_abs_err`` and
    ``mesh_plain_calls`` (calls compared, per shard stream) their kernel
@@ -393,19 +390,21 @@ ENC_PACK = {"pack": ("alacnet_tpu_torch.codec.encoder_device", "_pack")}
 ENCODE_DEVICE = {"run": ("alacnet_tpu_torch.codec.encoder_device", "encode_frames_device")}
 #: The encode files of phase 5's second run, with the extra-bits plane.
 UB1_FILES = ("fat24.m4a", "hires24.m4a")
-#: Where the pipeline queues device work: the blob upload, each batch's
-#: dispatch (H2D, kernels, epilogue) and its D2H copy.
+#: Where the pipeline queues device work: the blob upload (``Mesh.replicated``
+#: of the blob's words, once a card), each batch's dispatch (H2D, kernels,
+#: epilogue) and its D2H copy.
 DEVICE_SITES = {
-    k: ("alacnet_tpu_torch.parallel.pipeline", k)
-    for k in ("blob_words", "dispatch_frame_batch", "d2h_async")
+    "blob_words": ("alacnet_tpu_torch.parallel.mesh", "Mesh.replicated"),
+    "dispatch_frame_batch": ("alacnet_tpu_torch.parallel.pipeline", "dispatch_frame_batch"),
+    "d2h_async": ("alacnet_tpu_torch.parallel.pipeline", "_fetch_sharded"),
 }
 #: Where the pipeline queues each frame batch's decode.
 DISPATCH_SITE = {"dispatch": ("alacnet_tpu_torch.parallel.pipeline", "dispatch_frame_batch")}
-#: Where pack_rows.blob_words, frame_decode and pipeline call each
-#: kernel wrapper.
+#: Where pack_rows.blob_words, frame_decode and the mesh's shard loop
+#: call each kernel wrapper.
 CALL_SITES = {
     "blob_words": ("alacnet_tpu_torch.ops.cuda.pack_rows", "blob_words_fused"),
-    "pack_rows": ("alacnet_tpu_torch.parallel.pipeline", "pack_rows"),
+    "pack_rows": ("alacnet_tpu_torch.parallel.mesh", "pack_rows"),
     "rice_lpc": ("alacnet_tpu_torch.ops.frame_decode", "fused_rice_lpc"),
     "bulk_bits": ("alacnet_tpu_torch.ops.frame_decode", "bulk_bits"),
     "dec_epilogue": ("alacnet_tpu_torch.ops.frame_decode", "decode_epilogue"),
@@ -456,20 +455,30 @@ def pooled_streams(names, data):
     return [io.BytesIO(data[n]) for n in names for _ in range(COPIES)]
 
 
+def site_owner(mod_name: str, attr: str) -> tuple:
+    """(the object holding a call site's ``attr``, the attribute's name):
+    the module, or for ``Class.method`` the class."""
+    owner = importlib.import_module(mod_name)
+    *path, name = attr.split(".")
+    for part in path:
+        owner = getattr(owner, part)
+    return owner, name
+
+
 @contextlib.contextmanager
 def wrapped(sites, make):
     """Replace each call site ``sites[key] = (module, attr)`` with
     ``make(key, original)`` for the duration of the block."""
     saved = []
     for key, (mod_name, attr) in sites.items():
-        mod = importlib.import_module(mod_name)
-        saved.append((mod, attr, getattr(mod, attr)))
-        setattr(mod, attr, make(key, saved[-1][2]))
+        owner, name = site_owner(mod_name, attr)
+        saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, make(key, saved[-1][2]))
     try:
         yield
     finally:
-        for mod, attr, orig in saved:
-            setattr(mod, attr, orig)
+        for owner, name, orig in saved:
+            setattr(owner, name, orig)
 
 
 def batch_formats(fb) -> tuple:
@@ -1232,9 +1241,9 @@ def profile_by_site(run, site_map: dict, per: str) -> dict:
     sites = {}
     for key, (mod_name, attr) in site_map.items():
         try:
-            if hasattr(importlib.import_module(mod_name), attr):
+            if hasattr(*site_owner(mod_name, attr)):
                 sites[key] = (mod_name, attr)
-        except ImportError:
+        except (ImportError, AttributeError):
             pass
 
     def ranged(key, orig):
@@ -1821,21 +1830,11 @@ MESH_RATE_LARGE_RUNS = 5
 BLOB_STAGING_RUNS = 5
 #: Rounds of the pooled encode over every card against one card.
 MESH_ENCODE_RUNS = 5
-#: Rounds of the one-device-path arms (``one_device_path``), and the
-#: device-stage passes each round times.
-ONE_DEVICE_ROUNDS = 5
-ONE_DEVICE_PASSES = 10
-#: Where the session API calls decode_blob (imported at each call).
-DECODE_BLOB_SITE = {"decode_blob": ("alacnet_tpu_torch.parallel.pipeline", "decode_blob")}
 #: Where the kernel wrappers launch: phase 9 records each launch's stream.
 LAUNCH_SITE = {"launch": ("alacnet_tpu_torch.ops.cuda._lib", "launch")}
-#: Where the mesh paths call each kernel wrapper: each shard cuts its
-#: own rows in parallel/mesh.py, and decodes and encodes as on one
-#: device.
-MESH_CALL_SITES = {
-    **CALL_SITES, "pack_rows": ("alacnet_tpu_torch.parallel.mesh", "pack_rows"),
-    **ENC_CALL_SITES,
-}
+#: Where the mesh paths call each kernel wrapper: the sites of one
+#: device, whose decode is a mesh of one shard.
+MESH_CALL_SITES = {**CALL_SITES, **ENC_CALL_SITES}
 #: Seconds of plain-version runs each kernel's two-shard check may spend
 #: past the first call on each shard stream (the plain rice_lpc and
 #: predictor take ~10-13 s a call on the H100, so those two stop there).
@@ -1939,6 +1938,8 @@ def mesh_decode(names, data, expected, legs) -> dict:
     on no other, but ``blob_words`` once a distinct device, on its
     current stream.  Where a leg has ``calls``, each wrapper call is
     appended to it (``shard_recorder``)."""
+    import torch
+
     import alacnet_tpu_torch
     from alacnet_tpu_torch.ops.cuda import _lib
 
@@ -1956,7 +1957,9 @@ def mesh_decode(names, data, expected, legs) -> dict:
         launches = dict(_lib.LAUNCHES)
         check_pooled(results, names, expected, f"decode_streams({mesh})")
         del results
-        handles = [s.cuda_stream for s in mesh.streams]
+        # a mesh of one shard (every card, on one card) runs on its current stream
+        handles = [(torch.cuda.current_stream(d) if s is None else s).cuda_stream
+                   for d, s in zip(mesh.devices, mesh.streams)]
         sharded = [k for k in DECODE_KERNELS if k not in REPLICATED_KERNELS]
         by_stream = {k: [seen.get((k, h), 0) for h in handles] for k in sharded}
         idle = {k: c for k, c in by_stream.items() if 0 in c}
@@ -2099,8 +2102,8 @@ def mesh_rates(card: str, cards: int) -> dict:
     """``decode_blob`` over the bench's mixed pool (12,288 frames, a fresh
     order each run) to host PCM and into a sink on the cards
     (``sink_counter``), in turns (the arms' order rotating every round;
-    each arm's host run, then its sink run on the same blob): without a
-    mesh, over a one-card mesh, over two shards on one card and, where
+    each arm's host run, then its sink run on the same blob): over a
+    one-card mesh, over two shards on one card and, where
     several cards are visible, over every card; there also over
     ``MESH_RATE_LARGE`` times the pool, one card against every card,
     with the blob's host staging measured (``blob_staging``).  Every
@@ -2121,7 +2124,7 @@ def mesh_rates(card: str, cards: int) -> dict:
     rng = np.random.default_rng(7)
     config = DecodeConfig(device=DEVICE)
     one = make_mesh(TWO_SHARDS[:1])
-    arms = {"no_mesh": None, "one_card": one, "two_shards": make_mesh(TWO_SHARDS)}
+    arms = {"one_card": one, "two_shards": make_mesh(TWO_SHARDS)}
     sizes = [(MESH_RATE_FRAMES, MESH_RATE_RUNS, arms)]
     if cards >= 2:
         every = make_mesh()
@@ -2216,134 +2219,6 @@ def mesh_encode_rates(decoded, names, enc_expected, card: str) -> dict:
                         "quartiles_msps": quartiles(runs), "runs_msps": runs}
     rec = {"samples": samples, "runs": MESH_ENCODE_RUNS, "rates": rates, "card": card}
     emit({"mesh_encode_rates": rec})
-    return rec
-
-
-def one_device_path(decoded, card: str) -> dict:
-    """ROADMAP queue 1's one-device path: no mesh against a one-card mesh
-    (``make_mesh(["cuda:0"])``), in turns, the order alternating every
-    round.  (a) The session API: ``AlacContext.read_all`` over the long
-    stream (its 64-frame windows, ``decode_blob`` a window at a time,
-    readahead on), the mesh arm through ``decode_blob``'s ``mesh=`` (its
-    call site wrapped); every read against the source PCM.  (b) Each
-    bench kind's device stage: ``run_benchmark``'s corpus (4,096 frames
-    cycling 32 distinct ones) planned and staged once, then
-    ``ONE_DEVICE_PASSES`` passes of ``launch_frame_batch`` over every
-    span, the blob words rotating over ``bench_lib._copies`` copies;
-    host clock around synchronised passes; each arm's first pass held
-    against the source PCM.  Medians and quartiles of the rounds."""
-    import statistics
-
-    import torch
-
-    import alacnet_tpu_torch as at
-    from alacnet_tpu_torch import bench_lib
-    from alacnet_tpu_torch.config import DecodeConfig
-    from alacnet_tpu_torch.ops.cuda.pack_rows import blob_words
-    from alacnet_tpu_torch.parallel.mesh import make_mesh
-    from alacnet_tpu_torch.parallel.pipeline import launch_frame_batch
-
-    one = make_mesh(TWO_SHARDS[:1])
-    rec = {"card": card, "rounds": ONE_DEVICE_ROUNDS}
-
-    def summary(samples, times) -> dict:
-        out = {}
-        for label, t in times.items():
-            runs = [samples / x / 1e6 for x in t]
-            out[label] = {"msamples_per_s": samples / statistics.median(t) / 1e6,
-                          "quartiles_msps": quartiles(runs), "runs_msps": runs}
-        return out
-
-    def in_turns(arms, run) -> dict:
-        times = {k: [] for k in arms}
-        order = list(arms.items())
-        for r in range(ONE_DEVICE_ROUNDS + 1):  # the first round warms up
-            for label, mesh in order[r % 2:] + order[: r % 2]:
-                t = run(label, mesh)
-                if r:
-                    times[label].append(t)
-        return times
-
-    arms = {"no_mesh": None, "one_card": one}
-    music = decoded["music.m4a"]
-    pcm, data = long_stream(music)
-
-    meshed = [0]
-
-    def with_mesh(key, orig):
-        def run(*args, **kwargs):
-            meshed[0] += 1
-            return orig(*args, **{**kwargs, "mesh": one})
-        return run
-
-    window = []
-
-    def session(label, mesh):
-        sites = {} if mesh is None else DECODE_BLOB_SITE
-        before = meshed[0]
-        sync_all()
-        with wrapped(sites, with_mesh):
-            t0 = time.perf_counter()
-            with at.AlacContext(io.BytesIO(data), device=DEVICE) as ctx:
-                got = ctx.read_all()
-                window.append(ctx._window)
-            t = time.perf_counter() - t0
-        if not np.array_equal(got, pcm):
-            raise RuntimeError(f"AlacContext ({label}) on the long stream differs")
-        if (mesh is not None) != (meshed[0] > before):
-            raise RuntimeError(f"AlacContext ({label}): {meshed[0] - before} window decodes "
-                               "took the mesh")
-        return t
-
-    times = in_turns(arms, session)
-    rec["session"] = {"frames": -(-pcm.shape[0] // 4096), "window": window[0],
-                      "samples": int(pcm.shape[0]), "rates": summary(pcm.shape[0], times)}
-
-    config = DecodeConfig(device=DEVICE)
-    dev = config.torch_device
-    S = 4096
-    kinds = {}
-    for kind in bench_lib.CORPUS_KINDS:
-        distinct, frames, params = bench_lib._corpus(num_distinct=32, frame_samples=S,
-                                                     kind=kind)
-        table, lengths = bench_lib._source_table(frames, S)
-        src = np.arange(4096) % len(distinct)
-        staged = bench_lib._stage(*bench_lib._blob([distinct[i] for i in src]), params,
-                                  config)
-        first = blob_words(staged.blob, dev, max_w=staged.max_w, kernel=config.kernel)
-        copies = [first] + [first.clone() for _ in range(
-            bench_lib._copies(first.numel() * first.element_size()) - 1)]
-        samples = 0
-
-        def stage(label, mesh):
-            nonlocal samples
-            sync_all()
-            t0 = time.perf_counter()
-            for p in range(ONE_DEVICE_PASSES):
-                bw = copies[p % len(copies)]
-                outs = [launch_frame_batch(b, S, config, bw if mesh is None else (bw,),
-                                           mesh=mesh) for b in staged.batches]
-                if label not in checked:  # in the warm-up round, which is not kept
-                    sync_all()
-                    if mesh is not None:
-                        outs = [(o.parts[0], n.parts[0]) for o, n in outs]
-                    ok, samples = bench_lib._gate_device(outs, staged, src, table, lengths,
-                                                         dev)
-                    if not ok:
-                        raise RuntimeError(f"{kind} device stage ({label}): PCM differs "
-                                           "from the source")
-                    checked.add(label)
-            sync_all()
-            return (time.perf_counter() - t0) / ONE_DEVICE_PASSES
-
-        checked: set = set()
-        times = in_turns(arms, stage)
-        kinds[kind] = {"spans": len(staged.batches), "samples": samples,
-                       "rates": summary(samples, times)}
-        del copies, first, staged
-        torch.cuda.empty_cache()
-    rec["kinds"] = kinds
-    emit({"one_device_path": rec})
     return rec
 
 
@@ -2501,10 +2376,9 @@ def run_mesh_phase(names, data, decoded, expected, enc_expected, card: str) -> d
     rec["card"] = card
     emit({"mesh": rec})
     rates = mesh_rates(card, cards)
-    one_device = one_device_path(decoded, card)
     encode_rates = (mesh_encode_rates(decoded, names, enc_expected, card)
                     if cards >= 2 else None)
-    return {**rec, "rates": rates, "one_device": one_device, "encode_rates": encode_rates,
+    return {**rec, "rates": rates, "encode_rates": encode_rates,
             "shard_checks": shard_checks, "cards_checks": cards_checks}
 
 

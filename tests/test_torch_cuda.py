@@ -1047,6 +1047,38 @@ def test_mesh_launches_each_kernel_on_each_shard_stream(cuda, monkeypatch):
         assert all(seen[(k, h)] > 0 for h in handles), (k, seen)
 
 
+def test_one_device_decode_runs_on_the_current_stream(cuda, monkeypatch):
+    """A decode without a mesh runs on a mesh of one shard that makes no
+    CUDA stream: every kernel launches on the calling thread's current
+    stream (here one of the test's own), and the PCM is expected.json's."""
+    import hashlib
+
+    import alacnet_tpu_torch as at
+
+    caller = torch.cuda.Stream()
+    real = torch.cuda.Stream
+    made = []
+
+    class Counted(real):
+        def __new__(cls, device=None, priority=0, **kwargs):
+            if "stream_id" not in kwargs:  # a new stream, not a handle to one
+                made.append(device)
+            return super().__new__(cls, device, priority, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "Stream", Counted)
+    seen = _launch_streams(monkeypatch)
+    expected, names, streams = _pooled_smoke(MESH_COPIES)
+    with torch.cuda.stream(caller):
+        decoded = at.decode_streams(streams, device="cuda")
+    assert made == []
+    assert {k for k, _ in seen} >= {"blob_words", "pack_rows", "rice_lpc", "dec_epilogue"}
+    assert {h for _, h in seen} == {caller.cuda_stream}, seen
+    for i, r in enumerate(decoded):
+        le = r.pcm.dtype.newbyteorder("<")
+        want = expected[names[i // MESH_COPIES]]["sha256"]
+        assert hashlib.sha256(r.pcm.astype(le).tobytes()).hexdigest() == want
+
+
 #: Copies of each smoke file in the pooled decode over every card, as
 #: chip_smoke.py's COPIES.
 CARD_COPIES = 96
@@ -1081,6 +1113,22 @@ def test_mesh_over_every_card_matches_one_card(cards):
         le = m.pcm.dtype.newbyteorder("<")
         want = expected[names[i // MESH_COPIES]]["sha256"]
         assert hashlib.sha256(m.pcm.astype(le).tobytes()).hexdigest() == want
+
+
+def test_one_device_decode_on_another_card(cards):
+    """decode_streams(device="cuda:1") from a thread whose current card
+    is cuda:0 equals the cuda:0 decode, file for file."""
+    import alacnet_tpu_torch as at
+
+    _, _, streams = _pooled_smoke(MESH_COPIES)
+    with torch.cuda.device(0):
+        first = at.decode_streams(streams, device="cuda:0")
+        _, _, streams = _pooled_smoke(MESH_COPIES)
+        second = at.decode_streams(streams, device="cuda:1")
+        assert torch.cuda.current_device() == 0
+    for a, b in zip(first, second, strict=True):
+        assert b.pcm.dtype == a.pcm.dtype
+        np.testing.assert_array_equal(b.pcm, a.pcm)
 
 
 def test_mesh_launches_each_kernel_on_each_cards_stream(cards, monkeypatch):

@@ -136,6 +136,37 @@ def test_decode_blob_mesh_equals_single_device(mixed_blob, shards, devpack):
     assert got[1].sum() > 0
 
 
+@pytest.mark.parametrize("devpack", [True, False], ids=["device_pack", "host_rows"])
+def test_decode_blob_without_a_mesh_runs_one_shard(mixed_blob, devpack, monkeypatch):
+    """decode_blob with no mesh runs the per-shard loop once a batch,
+    over one shard, and equals mesh=cpu_mesh(1); a sink given no mesh
+    gets that shard's tensors, as before there was a mesh."""
+    blob, offsets, sizes, params, S = mixed_blob
+    cfg = at.DecodeConfig(device="cpu", device_pack=devpack)
+    shards = []
+    real = pipeline._decode_shards
+
+    def loop(mesh, *args, **kwargs):
+        shards.append(mesh.devices)
+        return real(mesh, *args, **kwargs)
+
+    monkeypatch.setattr(pipeline, "_decode_shards", loop)
+    got = pipeline.decode_blob(blob, offsets, sizes, params, S, config=cfg)
+    spans = pipeline.plan_blob_batches(blob, offsets, sizes, params, cfg.batch_limit,
+                                       strict=True)[2]
+    assert shards == [(torch.device("cpu"),)] * len(spans) and len(spans) > 1
+    want = pipeline.decode_blob(blob, offsets, sizes, params, S, config=cfg,
+                                mesh=cpu_mesh(1))
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    seen = []
+    pipeline.decode_blob(blob, offsets, sizes, params, S, config=cfg,
+                         sink=lambda out, n, orig_b: seen.append((out, n)))
+    assert len(seen) == len(spans)
+    assert all(isinstance(t, torch.Tensor) for pair in seen for t in pair)
+
+
 def test_decode_blob_mesh_matches_jax_mesh(mixed_blob, monkeypatch):
     """One case against the JAX package: decode_blob(mesh=) over 8
     shards with device row assembly, on both sides."""
